@@ -1,0 +1,656 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch port (dreamfusion_torch) on one GPU.
+
+    python3 chip_smoke.py                 # all phases (what the check runs)
+    python3 chip_smoke.py --phases build,kernels
+    python3 chip_smoke.py --phases build,small,train,kernels,profile
+
+Phases:
+  build    compile every CUDA kernel of the main path from
+           dreamfusion_torch/csrc with nvcc (sm_90a), one process per source;
+  small    one small -O train step (SD random-nano, f32) on the GPU against
+           the same step on the CPU's plain PyTorch path, with the same
+           weights and draws, in four variants (lambertian with FD normals,
+           the same with T_thresh = 0, albedo, the compositor in f64), each
+           beside CPU control steps whose camera draws move by 2^-24;
+  train    the main path: `-O` training through the Trainer, grid NeRF with
+           the full 16-level table, 64x64 renders, SDS on randomly
+           initialised SD-v1.5-sized UNet and VAE, ~20 steps crossing the
+           occupancy refreshes at steps 0 and 16; every launch count is set
+           to 0 just before and read just after;
+  kernels  each kernel against its plain PyTorch version on the card at the
+           main path's shapes (grid-encoder scatter at the dense and the
+           compacted steps' sample counts and all 16 level sizes, plus a
+           4,096-row level; the compositor at N = 4,096 rays with K in
+           {32, 128} and the main path's K; flash attention at the UNet's
+           and the VAE's 4,096-token self-attention, the VAE's with its
+           backward), with times for kernel, plain version and, where one
+           exists, one library call computing the same function;
+  profile  (not in the default run) torch.profiler over 3 more main-path
+           steps: device time per trainer span and per kernel, busy share.
+
+Output: human-readable lines, then a {"kernels": [...]} JSON line, the
+card's name and power limit from nvidia-smi, and last
+{"ok": true, "device": {...}}. Any failure exits non-zero before the last
+line. Without a CUDA device the script exits 2 and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import functools
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
+H100_F32_FLOPS = 67e12         # float32 outside the tensor cores
+H100_BF16_FLOPS = 989e12       # bf16 on the tensor cores, dense
+
+# TPU kernels each CUDA kernel replaces (file:line of the pl.pallas_call)
+REPLACES = {
+    "grid_encoder_bwd": "dreamfusion_tpu/ops/pallas_scatter.py:560",
+    "composite_fwd": "dreamfusion_tpu/ops/pallas_composite.py:153",
+    "composite_bwd": "dreamfusion_tpu/ops/pallas_composite.py:201",
+    # the stock Pallas TPU flash attention, reached from its flash branch
+    "attention_fwd": "dreamfusion_tpu/guidance/sd/layers.py:130",
+    "attention_bwd": "dreamfusion_tpu/guidance/sd/layers.py:130",
+}
+SOURCES = {
+    "grid_encoder_bwd": "dreamfusion_torch/csrc/grid_encoder_bwd.cu",
+    "composite_fwd": "dreamfusion_torch/csrc/fused_composite.cu",
+    "composite_bwd": "dreamfusion_torch/csrc/fused_composite.cu",
+    "attention_fwd": "dreamfusion_torch/csrc/flash_attention.cu",
+    "attention_bwd": "dreamfusion_torch/csrc/flash_attention.cu",
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn() over reps launches (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, flops: float, peak: float = H100_F32_FLOPS):
+    t_b = nbytes / H100_BYTES_PER_S * 1e3
+    t_f = flops / peak * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+# -- phases ---------------------------------------------------------------------
+
+def phase_build():
+    from dreamfusion_torch.ops import cuda as kcuda
+
+    t0 = time.perf_counter()
+    secs = kcuda.build()
+    log(f"[build] nvcc {kcuda.NVCC_FLAGS} -> {kcuda.BUILD_DIR}")
+    for name, s in secs.items():
+        log(f"[build] {name}: {s:.1f} s")
+        for line in kcuda.build_log.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build]   {line.strip()}")
+    log(f"[build] all kernels built in {time.perf_counter() - t0:.1f} s")
+
+
+def _small_cfg():
+    from dreamfusion_torch.config import Config
+
+    return Config(text="a red cube", guidance="stable-diffusion",
+                  sd_weights="random-nano", grid_ray=True, dir_text=True,
+                  fp16=False, h=32, w=32, grid_size=32, max_steps=128,
+                  grid_K=64, albedo_iters=0, lambda_orient=1e-2, iters=100)
+
+
+# (label, shading draw, T_thresh, compositor in f64 on both sides): the
+# main path's lambertian step with its finite-difference normals, the same
+# without the transmittance mask, an albedo step without normals or
+# orientation loss, and the lambertian step with the compositor computed in
+# float64 (its plain formulas) on both devices
+SMALL_VARIANTS = (("lambertian", 0.3, 1e-4, False),
+                  ("lambertian T_thresh=0", 0.3, 0.0, False),
+                  ("albedo, no normals", 0.9, 1e-4, False),
+                  ("lambertian, compositor in f64", 0.3, 1e-4, True))
+# camera and marching draws that a control run changes by 2^-24
+_CONTROL_DRAWS = ("radius", "u_sphere", "u_orbit", "perturb_u")
+
+
+def _f64(fn):
+    def run(*args):
+        args = [a.double() if torch.is_tensor(a) else a for a in args]
+        return tuple(x.float() for x in fn(*args))
+    return run
+
+
+def phase_small():
+    """GPU step (kernels) against the CPU step (plain path) on the same
+    weights and draws, at a small size in f32, in the SMALL_VARIANTS.
+
+    Held tightly: the loss (1e-4 relative), the occupancy grid (exact), the
+    cotangent at the density MLP's output, which every part of the step
+    from the field query through the compositor to the SDS loss feeds
+    (1e-4 L2-relative), and the background MLP's and the density MLP's
+    output bias gradients (1e-4 L2-relative). The hidden layers' and the
+    table's gradients are held to 3x the largest change that CPU control
+    runs show when the camera and marching draws change by 2^-24 (three
+    draws of the signs): at initialisation the MLP's pre-activations are
+    ~1e-4 with zero biases, so rounding-sized moves of the sample positions
+    flip a few ReLUs, and each flip moves these gradients by ~1e-2."""
+    from dreamfusion_torch.guidance.sd import layers
+    from dreamfusion_torch.guidance.sd.sds import build_sd_guidance, sd_guidance
+    from dreamfusion_torch.models.networks import build_model
+    from dreamfusion_torch.ops import fused_composite as fc
+    from dreamfusion_torch.ops import marching
+    from dreamfusion_torch.training import trainer as tr
+
+    cfg = _small_cfg()
+    cpu, gpu = torch.device("cpu"), torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    m_cpu = build_model(cfg, cpu, gen)
+    g_cpu = build_sd_guidance("random-nano", device=cpu, generator=gen)
+    m_gpu = copy.deepcopy(m_cpu).to(gpu)
+    unet = copy.deepcopy(g_cpu.modules["unet"]).to(gpu)
+    vae = copy.deepcopy(g_cpu.modules["vae"]).to(gpu)
+    g_gpu = sd_guidance(unet, vae, g_cpu.modules["latent_size"])
+
+    N = cfg.h * cfg.w
+    rng = np.random.default_rng(0)
+    jitter = torch.from_numpy(rng.uniform(size=(1, cfg.grid_size ** 3, 3))
+                              .astype(np.float32))
+    draws = {"radius": [1.2], "u_sphere": [[0.3, 0.6, 0.2]],
+             "u_orbit": [[0.5, 0.25]], "u_select": [0.7], "fov": 50.0,
+             "bg": rng.uniform(size=(N, 3)), "light_n": rng.normal(size=3),
+             "perturb_u": rng.uniform(size=N),
+             "vae_eps": rng.normal(size=(1, 32, 32, 4)), "t": [500],
+             "noise": rng.normal(size=(1, 32, 32, 4))}
+    tz = torch.from_numpy(rng.normal(size=(6, 2, 77, 16)).astype(np.float32))
+
+    def step(model, guid, dev, shade_u, T_thresh, c, f64, control=None):
+        st = marching.init_grid_state(1, c.grid_size, dev)
+        st = marching.update_grid(model.density, st, bound=1.0,
+                                  density_thresh=10.0, jitter=jitter.to(dev))
+        d = {k: torch.as_tensor(np.asarray(v)).float() for k, v in draws.items()}
+        if control is not None:
+            g = torch.Generator().manual_seed(control)
+            for k in _CONTROL_DRAWS:
+                sign = torch.randint(0, 2, d[k].shape, generator=g) * 2 - 1
+                d[k] = d[k] * (1 + 2.0 ** -24 * sign)
+        d = {k: v.to(dev) for k, v in d.items()}
+        d["t"] = d["t"].long()
+        d["shade_u"] = shade_u
+        g_out = []
+
+        def keep_cotangent(module, inputs, out):
+            if out.requires_grad:
+                i = len(g_out)
+                g_out.append(None)
+                out.register_hook(lambda g: g_out.__setitem__(i, g.cpu()))
+
+        hook = model.sigma_net.register_forward_hook(keep_cotangent)
+        render, cf, cb = tr.render_grid, fc.composite_fwd, fc.composite_bwd
+        tr.render_grid = functools.partial(render, T_thresh=T_thresh)
+        if f64:
+            fc.composite_fwd = _f64(fc.composite_fwd_plain)
+            fc.composite_bwd = _f64(fc.composite_bwd_plain)
+        try:
+            fn = tr.make_grads_fn(c, model, guid, grid_K=c.grid_K,
+                                  compact_M=N * 24)
+            loss, met = fn(5, tz.to(dev), st, draws=d)
+        finally:
+            tr.render_grid, fc.composite_fwd, fc.composite_bwd = render, cf, cb
+            hook.remove()
+        grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
+        grads["(cotangent at the density MLP output)"] = torch.cat(g_out)
+        return float(loss), grads, st.occ.cpu(), int(met["n_field_samples"])
+
+    def l2(a, b):
+        return {k: float((a[k] - b[k]).norm() / b[k].norm().clamp_min(1e-30))
+                for k in b}
+
+    tight = ("(cotangent", "bg_net.", "sigma_net.dense_2.bias")
+    old_gn, old_tf32 = layers.GN_DTYPE, torch.backends.cudnn.allow_tf32
+    layers.GN_DTYPE, torch.backends.cudnn.allow_tf32 = "f32", False
+    failures = []
+    try:
+        for label, shade_u, T_thresh, f64 in SMALL_VARIANTS:
+            c = cfg if shade_u < 0.8 else cfg.replace(lambda_orient=0.0)
+            args = (shade_u, T_thresh, c, f64)
+            lc, gc, oc, n = step(m_cpu, g_cpu, cpu, *args)
+            lg, gg, og, _ = step(m_gpu, g_gpu, gpu, *args)
+            _, gg2, _, _ = step(m_gpu, g_gpu, gpu, *args)
+            ctrl = {k: 0.0 for k in gc}
+            for seed in (0, 1, 2):
+                _, gp, _, _ = step(m_cpu, g_cpu, cpu, *args, control=seed)
+                ctrl = {k: max(ctrl[k], v) for k, v in l2(gp, gc).items()}
+            gap, rerun = l2(gg, gc), l2(gg2, gg)
+            loss_rel = abs(lg - lc) / max(abs(lc), 1e-30)
+            occ_diff = int((oc != og).sum())
+            log(f"[small] {label}: loss cpu {lc:.6f} gpu {lg:.6f} rel "
+                f"{loss_rel:.2e}; occupancy cells differing {occ_diff}; "
+                f"field samples {n}")
+            log(f"[small] {label}: L2-relative GPU-CPU / GPU rerun / CPU "
+                f"control (draws changed by 2^-24): " + ", ".join(
+                    f"{k} {gap[k]:.1e} {rerun[k]:.1e} {ctrl[k]:.1e}"
+                    for k in gc))
+            bad = [k for k in gc if not (
+                gap[k] <= 1e-4 if k.startswith(tight) else gap[k] <= 3 * ctrl[k])]
+            if occ_diff or loss_rel > 1e-4 or bad:
+                failures.append(f"{label}: {bad or 'loss/occupancy'}")
+    finally:
+        layers.GN_DTYPE, torch.backends.cudnn.allow_tf32 = old_gn, old_tf32
+    if failures:
+        raise AssertionError(
+            "GPU step disagrees with the CPU plain path (tolerances: loss "
+            "1e-4 rel, occupancy exact, MLP-output cotangent and output-layer "
+            "biases 1e-4 L2-relative, other gradients 3x the CPU control): "
+            + "; ".join(failures))
+
+
+def phase_train(steps: int, warmup: int):
+    from dreamfusion_torch.config import parse_config
+    from dreamfusion_torch.ops import cuda as kcuda
+    from dreamfusion_torch.training.trainer import Trainer
+
+    ws = tempfile.mkdtemp(prefix="chip_smoke_ws_")
+    argv = ["-O", "--text", "a hamburger", "--sd_weights", "random-full",
+            "--iters", str(steps), "--albedo_iters", str(steps // 2),
+            "--workspace", ws, "--ckpt", "scratch", "--seed", "0"]
+    cfg = parse_config(argv)
+    t0 = time.perf_counter()
+    trainer = Trainer("smoke", cfg, use_checkpoint="scratch")
+    torch.cuda.synchronize()
+    n_sd = sum(p.numel() for m in ("unet", "vae")
+               for p in trainer.guidance.modules[m].parameters())
+    log(f"[train] python -m dreamfusion_torch.main {' '.join(argv)}")
+    log(f"[train] setup {time.perf_counter() - t0:.1f} s; SD params {n_sd:,} "
+        f"({next(trainer.guidance.modules['unet'].parameters()).dtype}); "
+        f"grid table {trainer.model.embeddings.shape[0]:,} rows")
+
+    torch.cuda.reset_peak_memory_stats()
+    kcuda.reset_counts()
+    trainer.train(max_steps=warmup, log_interval=1, checkpoint_at_end=False)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    trainer.train(max_steps=steps, log_interval=1, checkpoint_at_end=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    counts = dict(kcuda.launch_counts)
+
+    losses = torch.stack(trainer.loss_history).float().cpu()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    recs = [json.loads(l) for l in open(trainer.log_path)]
+    log("[train] loss per step: " + " ".join(f"{float(x):.4g}" for x in losses))
+    log("[train] (K, M) per step: " + " ".join(
+        f"({r['grid_K']},{r['compact_M']})" for r in recs))
+    log(f"[train] steps/s after warm-up: {(steps - warmup) / dt:.4f} "
+        f"(steps {warmup}..{steps}, includes the refresh at step 16)")
+    log(f"[train] peak device memory: {peak:.2f} GiB")
+    log(f"[train] kernels {json.dumps(counts)}")
+    if not bool(torch.isfinite(losses).all()) or len(losses) != steps:
+        raise AssertionError("non-finite loss in the train phase")
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"a kernel of the main path never launched: {counts}")
+    return trainer, counts
+
+
+def _real_positions(trainer, dense: bool = False):
+    """Field-query positions of one main-path step: a fresh camera batch,
+    marched on the trained occupancy grid at the current (K, M) budgets, or
+    at K with no compaction (dense: the N x K query of steps 0-15)."""
+    from dreamfusion_torch import cameras
+    from dreamfusion_torch.ops import marching
+    from dreamfusion_torch.ops.composite import near_far_from_aabb
+
+    cfg = trainer.cfg
+    b = cameras.sample_train_batch(cfg, generator=trainer.gen,
+                                   device=trainer.device)
+    o, d = b["rays_o"].reshape(-1, 3), b["rays_d"].reshape(-1, 3)
+    aabb = torch.tensor([-1.0] * 3 + [1.0] * 3, device=o.device)
+    near, far = near_far_from_aabb(o, d, aabb, cfg.min_near)
+    K, M = trainer._cur_grid_K, None if dense else trainer._cur_compact_M
+    m = marching.march_rays(trainer.grid_state.occ, o, d, near, far,
+                            bound=1.0, max_steps=cfg.max_steps, K=K,
+                            perturb=True, generator=trainer.gen)
+    if M is not None and M < o.shape[0] * K:
+        cm = marching.make_compact_map(m.counts, K, M)
+        t = m.ts.reshape(-1)[cm.fwd_flat]
+        x = o[cm.ray_of_m] + d[cm.ray_of_m] * t[:, None]
+        valid = cm.valid_m & m.valid.reshape(-1)[cm.fwd_flat]
+    else:
+        x = (o[:, None] + d[:, None] * m.ts[..., None]).reshape(-1, 3)
+        valid = m.valid.reshape(-1)
+    return torch.clamp(x, -1.0, 1.0), valid, K, M
+
+
+def check_grid_encoder(spec, x, valid, label, gen, timed: bool):
+    """Kernel A against its plain version on positions x; samples that are
+    not valid (past a ray's last sample) get a zero cotangent, as in the
+    train step, and the kernel skips them."""
+    from dreamfusion_torch.ops import grid_encoder as ge
+
+    consts = ge._level_consts(spec, x.device)
+    base, w, _ = spec.residuals(x)
+    L, J = base.shape
+    cot = torch.randn(J, L, 2, device=x.device, generator=gen)
+    if valid is not None:
+        cot = cot * valid[:, None, None]
+    n_live = J if valid is None else int(valid.sum())
+    d_k = ge.grid_encoder_bwd_cuda(base, w, cot, consts)
+    d_p = ge.grid_encoder_bwd_plain(base, w, cot, consts)
+    torch.cuda.synchronize()
+    # both sides sum with atomics in no fixed order; the coarsest level
+    # takes ~200 updates per table entry at the main path's J
+    err = float((d_k - d_p).abs().max())
+    tol = 2e-5 * float(d_p.abs().max())
+    log(f"[kernels] A grid_encoder_bwd {label}: L={L} J={J:,} (valid "
+        f"{n_live:,}) T={consts.total:,} "
+        f"max_abs_err {err:.3e} (tol {tol:.3e})")
+    if not err <= tol:
+        raise AssertionError(f"kernel A disagrees with index_add_ ({label})")
+    if not timed:
+        return None
+    ms = cuda_ms(lambda: ge.grid_encoder_bwd_cuda(base, w, cot, consts))
+    plain_ms = cuda_ms(lambda: ge.grid_encoder_bwd_plain(base, w, cot, consts),
+                       reps=5)
+    rows = torch.cat([ge._corner_rows(consts, base, l) for l in range(L)])
+    upd = torch.cat([w[l][..., None] * cot[:, l][None] for l in range(L)])
+    rows, upd = rows.reshape(-1), upd.reshape(-1, 2)
+    out = torch.zeros(consts.total, 2, device=x.device)
+    lib_ms = cuda_ms(lambda: out.index_add_(0, rows, upd))
+    # every cotangent is read; rows and weights only for valid samples
+    nbytes = L * J * 8 + L * n_live * (4 + 32) + consts.total * 2 * 4
+    b_ms, b_by = bound(nbytes, L * n_live * 32)
+    log(f"[kernels] A times ({label}): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def composite_inputs(N, K, gen, device):
+    """Rays of a 512-step lattice (dt = 2 sqrt(3) / 512) with an invalid
+    tail; half the rays dense enough to cross T_thresh = 1e-4."""
+    dt0 = 2.0 * math.sqrt(3.0) / 512
+    u = lambda *s: torch.rand(*s, generator=gen, device=device)
+    dense = (torch.arange(N, device=device) % 2 == 0).float()[:, None]
+    sig = u(N, K) * (20.0 + 2000.0 * dense)
+    n_valid = (u(N, 1) * K).long() + 1
+    valid = (torch.arange(K, device=device)[None] < n_valid).float()
+    sig = sig * valid
+    dt = torch.full((N, K), dt0, device=device) * valid
+    ts = (0.5 + dt0 * torch.arange(K, device=device).float()).expand(N, K)
+    rgb = u(N, K, 3)
+    g = (torch.randn(N, generator=gen, device=device),
+         torch.randn(N, generator=gen, device=device),
+         torch.randn(N, 3, generator=gen, device=device))
+    return sig.contiguous(), rgb, dt, ts.contiguous(), g
+
+
+def check_composite(N, K, gen, device, timed: bool):
+    from dreamfusion_torch.ops import fused_composite as fc
+
+    T = 1e-4
+    sig, rgb, dt, ts, (gws, gd, gc) = composite_inputs(N, K, gen, device)
+    ok = fc.composite_fwd_cuda(sig, rgb, dt, ts, T)
+    op = fc.composite_fwd_plain(sig, rgb, dt, ts, T)
+    bk = fc.composite_bwd_cuda(sig, rgb, dt, ts, gws, gd, gc, T)
+    bp = fc.composite_bwd_plain(sig, rgb, dt, ts, gws, gd, gc, T)
+    torch.cuda.synchronize()
+    trans = torch.exp(torch.cumsum(-sig * dt, -1) + sig * dt)   # exclusive
+    live = int((trans > T).sum())
+    crossing = int(((trans <= T).any(-1)).sum())
+    e_f = max(float((a - b).abs().max()) for a, b in zip(ok, op))
+    e_b = max(float((a - b).abs().max()) for a, b in zip(bk, bp))
+    tol_b = 1e-4 * max(float(bp[0].abs().max()), float(bp[1].abs().max()))
+    log(f"[kernels] B N={N} K={K}: rays crossing T_thresh {crossing}, live "
+        f"samples {live:,}; fwd max_abs_err {e_f:.3e} (tol 1e-5), bwd "
+        f"max_abs_err {e_b:.3e} (tol {tol_b:.3e})")
+    if not (e_f <= 1e-5 and e_b <= tol_b and crossing > 0):
+        raise AssertionError(f"kernel B disagrees with its plain version (K={K})")
+    if not timed:
+        return None
+    f_ms = cuda_ms(lambda: fc.composite_fwd_cuda(sig, rgb, dt, ts, T))
+    f_plain = cuda_ms(lambda: fc.composite_fwd_plain(sig, rgb, dt, ts, T))
+    b_ms = cuda_ms(lambda: fc.composite_bwd_cuda(sig, rgb, dt, ts, gws, gd, gc, T))
+    b_plain = cuda_ms(lambda: fc.composite_bwd_plain(sig, rgb, dt, ts, gws, gd,
+                                                     gc, T))
+    fb, fby = bound(live * 24 + N * 20, live * 14)
+    bb, bby = bound(live * 24 + N * 20 + N * K * 16, live * 40)
+    log(f"[kernels] B-fwd {f_ms:.4f} ms (plain {f_plain:.4f}, bound {fb:.5f} "
+        f"{fby}); B-bwd {b_ms:.4f} ms (plain {b_plain:.4f}, bound {bb:.5f} {bby})")
+    return ({"max_abs_err": e_f, "ms": f_ms, "plain_ms": f_plain,
+             "bound_ms": fb, "bound_by": fby, "library_ms": None},
+            {"max_abs_err": e_b, "ms": b_ms, "plain_ms": b_plain,
+             "bound_ms": bb, "bound_by": bby, "library_ms": None})
+
+
+def check_attention(B, N, H, D, gen, device, grad: bool):
+    """Flash-attention kernels against attention_plain (f32 scores and
+    softmax) at one of the main path's shapes, bf16 inputs."""
+    from dreamfusion_torch.ops import flash_attention as fa
+
+    scale = 1.0 / math.sqrt(D)
+    # q at 3x unit variance: scores of std ~3, so the softmax is peaked
+    q, k, v, do = (torch.randn(B, N, H, D, generator=gen, device=device)
+                   .mul(m).to(torch.bfloat16) for m in (3.0, 1.0, 1.0, 1.0))
+    o, lse = fa.attention_fwd_cuda(q, k, v, scale)
+    qf, kf, vf = (x.float().requires_grad_(grad) for x in (q, k, v))
+    o_ref = fa.attention_plain(qf, kf, vf, scale)
+    o_ref_d = o_ref.detach()
+    torch.cuda.synchronize()
+    # bf16 output: half an ulp of bf16 is 2^-9 of a value; P enters the
+    # second product in bf16 too. Tolerance 1e-2 of the largest entry.
+    e_f = float((o.float() - o_ref_d).abs().max())
+    tol_f = 1e-2 * float(o_ref_d.abs().max())
+    label = f"B={B} N={N} H={H} D={D}"
+    log(f"[kernels] attention_fwd {label}: max_abs_err {e_f:.3e} (tol "
+        f"{tol_f:.3e})")
+    if not e_f <= tol_f:
+        raise AssertionError(f"attention_fwd disagrees with its plain version ({label})")
+    nbytes = 4 * B * N * H * D * 2 + B * H * N * 4
+    fb, fby = bound(nbytes, 4 * B * H * N * N * D, H100_BF16_FLOPS)
+    res = {"fwd": {
+        "max_abs_err": e_f,
+        "ms": cuda_ms(lambda: fa.attention_fwd_cuda(q, k, v, scale)),
+        "plain_ms": cuda_ms(lambda: fa.attention_plain(q, k, v, scale), reps=5),
+        "bound_ms": fb, "bound_by": fby,
+        "library_ms": cuda_ms(lambda: torch.nn.functional
+                              .scaled_dot_product_attention(
+                                  q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), scale=scale))}}
+    if grad:
+        dq, dk, dv = fa.attention_bwd_cuda(q, k, v, o, lse, do, scale)
+        refs = torch.autograd.grad(o_ref, (qf, kf, vf), do.float(),
+                                   retain_graph=True)
+        torch.cuda.synchronize()
+        # dS = P (dP - delta) enters two products in bf16; the outputs are
+        # bf16. Tolerance 2e-2 of each gradient's largest entry.
+        errs = [float((g.float() - r).abs().max()) / float(r.abs().max())
+                for g, r in zip((dq, dk, dv), refs)]
+        log(f"[kernels] attention_bwd {label}: max_abs_err / max |ref| "
+            f"dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (tol 2e-2)")
+        if not max(errs) <= 2e-2:
+            raise AssertionError(f"attention_bwd disagrees with its plain "
+                                 f"version ({label})")
+        e_b = max(float((g.float() - r).abs().max())
+                  for g, r in zip((dq, dk, dv), refs))
+        ql, kl, vl = (x.detach().requires_grad_(True) for x in (q, k, v))
+        lib_o = torch.nn.functional.scaled_dot_product_attention(
+            ql.transpose(1, 2), kl.transpose(1, 2), vl.transpose(1, 2),
+            scale=scale)
+        g_lib = do.transpose(1, 2)
+        bb, bby = bound(8 * B * N * H * D * 2 + B * H * N * 4,
+                        10 * B * H * N * N * D, H100_BF16_FLOPS)
+        res["bwd"] = {
+            "max_abs_err": e_b,
+            "ms": cuda_ms(lambda: fa.attention_bwd_cuda(q, k, v, o, lse, do,
+                                                        scale)),
+            "plain_ms": cuda_ms(lambda: torch.autograd.grad(
+                o_ref, (qf, kf, vf), do.float(), retain_graph=True), reps=5),
+            "bound_ms": bb, "bound_by": bby,
+            "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                lib_o, (ql, kl, vl), g_lib, retain_graph=True))}
+    for key, r in res.items():
+        log(f"[kernels] attention_{key} {label}: kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, scaled_dot_product_attention "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+    return res
+
+
+def phase_kernels(trainer, counts):
+    from dreamfusion_torch.ops.grid_encoder import GridEncoderSpec
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    if trainer is not None:
+        x, valid, K, M = _real_positions(trainer)
+        x_dense, valid_dense, _, _ = _real_positions(trainer, dense=True)
+        spec = trainer.model.enc_spec
+    else:                       # --phases without train: main-path-sized data
+        x = torch.rand(4096 * 40, 3, device=dev, generator=gen) * 2 - 1
+        x_dense = torch.rand(4096 * 128, 3, device=dev, generator=gen) * 2 - 1
+        valid = valid_dense = None
+        K, M = 64, None
+        spec = GridEncoderSpec(num_levels=16, level_dim=2, base_resolution=16,
+                               log2_hashmap_size=16, desired_resolution=2048)
+    sizes = spec.geometry[2]
+    log(f"[kernels] main-path budgets K={K} M={M}; level sizes {sizes}")
+    # steps 0-15 query all N x K samples, later steps the compacted M
+    a = check_grid_encoder(spec, x_dense, valid_dense, "dense steps", gen,
+                           timed=True)
+    check_grid_encoder(spec, x, valid, "compacted steps", gen, timed=True)
+    k1b = GridEncoderSpec(num_levels=1, level_dim=2, base_resolution=15,
+                          log2_hashmap_size=16)
+    assert k1b.table_size == 4096
+    check_grid_encoder(k1b, x, valid, "T=4096 (the K1b row)", gen, timed=True)
+    for k in sorted({32, 128} - {K}):
+        check_composite(4096, k, gen, dev, timed=False)
+    bf, bb = check_composite(4096, K, gen, dev, timed=True)
+    # the UNet's self-attention over 64x64 latents (CFG batch 2, 8 heads of
+    # 40, no gradient) and the VAE mid-block's (1 head of 512, gradient)
+    unet_attn = check_attention(2, 4096, 8, 40, gen, dev, grad=False)
+    vae_attn = check_attention(1, 4096, 1, 512, gen, dev, grad=True)
+    entries = []
+    for name, res in (("grid_encoder_bwd", a), ("composite_fwd", bf),
+                      ("composite_bwd", bb),
+                      ("attention_fwd", unet_attn["fwd"]),
+                      ("attention_bwd", vae_attn["bwd"])):
+        entries.append({"name": name, "route": "cuda", "source": SOURCES[name],
+                        "replaces": REPLACES[name],
+                        "launches": (counts or {}).get(name, 0), **res})
+    return entries
+
+
+def phase_profile(trainer, steps: int = 3):
+    """torch.profiler over `steps` main-path steps: device time per trainer
+    span and per kernel, and the device's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trainer.train_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+
+    def dev_self(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+    def dev_total(e):
+        return getattr(e, "device_time_total",
+                       getattr(e, "cuda_time_total", 0)) / 1e3
+
+    spans = ("step/", "grid_")
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")
+               and not e.key.startswith(spans)]
+    kernel_ms = sum(dev_self(e) for e in kernels)
+    log(f"[profile] {steps} steps under the profiler: wall {wall_ms / steps:.2f} "
+        f"ms/step, device kernels {kernel_ms / steps:.2f} ms/step, busy "
+        f"share {kernel_ms / wall_ms:.3f}")
+    for e in sorted((e for e in events if e.key.startswith(spans)
+                     and str(e.device_type).endswith("CPU")),
+                    key=lambda e: -e.cpu_time_total):
+        log(f"[profile] span {e.key}: host {e.cpu_time_total / 1e3 / steps:.2f} "
+            f"ms/step, device time of its kernels {dev_total(e) / steps:.2f} "
+            f"ms/step")
+    for e in sorted(kernels, key=dev_self, reverse=True)[:15]:
+        log(f"[profile] kernel {dev_self(e) / steps:8.3f} ms/step x"
+            f"{e.count // steps:<5d} {e.key[:90]}")
+    log(f"[profile] kernel launches per step: "
+        f"{sum(e.count for e in kernels) // steps}")
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--phases", default="build,small,train,kernels")
+    p.add_argument("--steps", type=int, default=20)
+    p.add_argument("--warmup", type=int, default=4)
+    args = p.parse_args(argv)
+    phases = args.phases.split(",")
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available; this script checks "
+              "the port on an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import dreamfusion_torch  # noqa: F401  (fails outside a checkout)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()
+    log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
+        f"cuda {torch.version.cuda}; matmul tf32 "
+        f"{torch.backends.cuda.matmul.allow_tf32}, cudnn tf32 "
+        f"{torch.backends.cudnn.allow_tf32}")
+    t0 = time.perf_counter()
+    trainer, counts = None, None
+    if "build" in phases:
+        phase_build()
+    if "small" in phases:
+        phase_small()
+    if "train" in phases:
+        trainer, counts = phase_train(args.steps, args.warmup)
+    entries = phase_kernels(trainer, counts) if "kernels" in phases else []
+    if "profile" in phases and trainer is not None:
+        phase_profile(trainer)
+    log(f"[done] {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": entries}))
+    print(smi[0] if smi else "nvidia-smi: no output")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,167 @@
+"""Configuration for dreamfusion_torch (counterpart of dreamfusion_tpu/config.py).
+
+The port keeps its own copy, limited to the fields the ``-O`` training path
+reads. ``-O`` = bf16 compute + occupancy-grid renderer + view-dependent
+text (reference main.py:75-79); on the GPU "fp16" means bf16 compute with
+f32 parameters, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import math
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+
+@dataclass
+class Config:
+    # -- experiment ---------------------------------------------------------
+    text: Optional[str] = None
+    negative: str = ""
+    workspace: str = "workspace"
+    seed: int = 0
+    test: bool = False
+    eval_interval: int = 10             # eval every N epochs (slice 2)
+    guidance: str = "stable-diffusion"  # 'stable-diffusion' | 'none'
+    ckpt: str = "latest"                # latest | scratch | <path>
+    device: Optional[str] = None        # None = cuda (raises without a GPU)
+
+    # -- training -----------------------------------------------------------
+    iters: int = 10000
+    lr: float = 1e-3
+    batch_size: int = 1
+    grid_ray: bool = False
+    max_steps: int = 512
+    update_extra_interval: int = 16
+    albedo_iters: int = 1000
+    uniform_sphere_rate: float = 0.5
+    grid_K: int = 128
+    grid_K_adaptive: bool = True
+    grid_size: int = 128
+    grid_compact: bool = True
+    grid_compact_slack: float = 1.25
+    grid_decay: float = 0.95
+
+    # -- model ---------------------------------------------------------------
+    bg_radius: float = 1.4
+    density_thresh: float = 10.0
+    fp16: bool = True                   # bf16 compute, f32 params
+
+    # -- render resolution ----------------------------------------------------
+    w: int = 64
+    h: int = 64
+
+    # -- scene ---------------------------------------------------------------
+    bound: float = 1.0
+    min_near: float = 0.1
+    radius_range: Tuple[float, float] = (1.0, 1.5)
+    fovy_range: Tuple[float, float] = (40.0, 70.0)
+    dir_text: bool = False
+    suppress_face: bool = False
+    angle_overhead: float = 30.0
+    angle_front: float = 60.0
+
+    # -- losses ---------------------------------------------------------------
+    lambda_entropy: float = 1e-4
+    lambda_opacity: float = 0.0
+    lambda_orient: float = 1e-2
+    lambda_smooth: float = 0.0
+
+    # -- guidance -------------------------------------------------------------
+    guidance_scale: float = 100.0
+    sd_weights: Optional[str] = None    # random-full | random-tiny | random-nano
+
+    # -- optimizer --------------------------------------------------------------
+    adam_b1: float = 0.9
+    adam_b2: float = 0.99
+    adam_eps: float = 1e-15
+
+    # -- bookkeeping ------------------------------------------------------------
+    dataset_size: int = 100             # steps per "epoch"
+    max_keep_ckpt: int = 2
+
+    @property
+    def cascade(self) -> int:
+        return 1 + math.ceil(math.log2(max(self.bound, 1.0)))
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+    @staticmethod
+    def presets_O(cfg: "Config") -> "Config":
+        """-O: bf16 + occupancy-grid marching + dir text (main.py:75-79)."""
+        return cfg.replace(fp16=True, dir_text=True, grid_ray=True)
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("dreamfusion_torch")
+    d = Config()
+    p.add_argument("--text", default=None)
+    p.add_argument("--negative", default="", type=str)
+    p.add_argument("-O", action="store_true",
+                   help="preset: bf16 + grid_ray + dir_text")
+    p.add_argument("--test", action="store_true")
+    p.add_argument("--device", default=None, choices=["cuda", "cpu"],
+                   help="default cuda; cpu runs the plain PyTorch path")
+    p.add_argument("--eval_interval", type=int, default=d.eval_interval)
+    p.add_argument("--workspace", type=str, default=d.workspace)
+    p.add_argument("--guidance", type=str, default=d.guidance)
+    p.add_argument("--seed", type=int, default=d.seed)
+    p.add_argument("--iters", type=int, default=d.iters)
+    p.add_argument("--lr", type=float, default=d.lr)
+    p.add_argument("--ckpt", type=str, default=d.ckpt)
+    p.add_argument("--grid_ray", "--cuda_ray", dest="grid_ray",
+                   action="store_true")
+    p.add_argument("--max_steps", type=int, default=d.max_steps)
+    p.add_argument("--update_extra_interval", type=int,
+                   default=d.update_extra_interval)
+    p.add_argument("--albedo_iters", type=int, default=d.albedo_iters)
+    p.add_argument("--uniform_sphere_rate", type=float,
+                   default=d.uniform_sphere_rate)
+    p.add_argument("--grid_K", type=int, default=d.grid_K)
+    p.add_argument("--no_grid_K_adaptive", dest="grid_K_adaptive",
+                   action="store_false", default=d.grid_K_adaptive)
+    p.add_argument("--grid_size", type=int, default=d.grid_size)
+    p.add_argument("--no_grid_compact", dest="grid_compact",
+                   action="store_false", default=d.grid_compact)
+    p.add_argument("--grid_compact_slack", type=float,
+                   default=d.grid_compact_slack)
+    p.add_argument("--grid_decay", type=float, default=d.grid_decay)
+    p.add_argument("--dataset_size", type=int, default=d.dataset_size)
+    p.add_argument("--max_keep_ckpt", type=int, default=d.max_keep_ckpt)
+    p.add_argument("--bg_radius", type=float, default=d.bg_radius)
+    p.add_argument("--density_thresh", type=float, default=d.density_thresh)
+    p.add_argument("--fp16", action="store_true")
+    p.add_argument("--sd_weights", type=str, default=None)
+    p.add_argument("--batch_size", type=int, default=d.batch_size)
+    p.add_argument("--w", type=int, default=d.w)
+    p.add_argument("--h", type=int, default=d.h)
+    p.add_argument("--bound", type=float, default=d.bound)
+    p.add_argument("--min_near", type=float, default=d.min_near)
+    p.add_argument("--radius_range", type=float, nargs="*",
+                   default=list(d.radius_range))
+    p.add_argument("--fovy_range", type=float, nargs="*",
+                   default=list(d.fovy_range))
+    p.add_argument("--dir_text", action="store_true")
+    p.add_argument("--suppress_face", action="store_true")
+    p.add_argument("--angle_overhead", type=float, default=d.angle_overhead)
+    p.add_argument("--angle_front", type=float, default=d.angle_front)
+    p.add_argument("--lambda_entropy", type=float, default=d.lambda_entropy)
+    p.add_argument("--lambda_opacity", type=float, default=d.lambda_opacity)
+    p.add_argument("--lambda_orient", type=float, default=d.lambda_orient)
+    p.add_argument("--lambda_smooth", type=float, default=d.lambda_smooth)
+    p.add_argument("--guidance_scale", type=float, default=d.guidance_scale)
+    return p
+
+
+def parse_config(argv: Optional[List[str]] = None) -> Config:
+    ns = build_argparser().parse_args(argv)
+    names = {f.name for f in dataclasses.fields(Config)}
+    kw = {}
+    for k, v in vars(ns).items():
+        if k in names:
+            kw[k] = tuple(v) if k in ("radius_range", "fovy_range") else v
+    cfg = Config(**kw)
+    return Config.presets_O(cfg) if ns.O else cfg

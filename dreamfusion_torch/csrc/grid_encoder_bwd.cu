@@ -1,0 +1,89 @@
+// Grid-encoder backward scatter: the table gradient of the tiled
+// multiresolution grid encoder, all levels in one launch.
+//
+// Replaces the TPU kernels dreamfusion_tpu/ops/pallas_scatter.py::
+// matmul_scatter_add_oct_binned (bodies _scatter_kernel_oct_binned_t /
+// _scatter_kernel_oct_binned) and ::matmul_scatter_add_oct (bodies
+// _scatter_kernel_oct2 / _scatter_kernel_oct), called per level from
+// dreamfusion_tpu/ops/grid_encoder.py::_make_encode_levels_oct._bwd.
+//
+// Contract (the JAX VJP's residuals, unchanged):
+//   base [L, B] int32   local row of corner 0 of sample j at level l
+//   w    [L, 8, B] f32  trilinear corner weights
+//   cot  [B, L, 2] f32  cotangent of the encoder output
+//   table [L, 10] int32 per level: size, offset, 8 corner offsets
+//   d_emb [T, 2] f32    zero-initialised by the caller; receives
+//     d_emb[offset_l + (base + corner_off_{l,c}) % size_l, k] += w[c] * cot[k]
+//
+// What bounds it on Hopper: bytes and atomics. Each (sample, level) reads
+// 4 + 32 + 8 bytes and issues 16 f32 atomicAdds into a 7.2 MB table that
+// stays in the 50 MB L2, so the atomics resolve in L2. The TPU kernels sort
+// the updates and multiply one-hot windows on the MXU because the TPU has
+// no scatter hardware; the GPU has L2 atomics, so this kernel keeps none
+// of that machinery (no sort, no oct layout, no transposed output). One
+// thread per (sample, level), consecutive threads on consecutive samples
+// of one level, so the base and weight reads coalesce. Samples whose
+// cotangent is zero (masked or out-of-bounds) issue no atomics.
+// Making it fast (vector float2 atomics, warp-aggregated updates on the
+// coarse levels, shared-memory tiles) is later work.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kMaxLevels = 32;
+constexpr int kTableCols = 10;
+
+__global__ void grid_encoder_bwd_kernel(const int32_t* __restrict__ base,
+                                        const float* __restrict__ w,
+                                        const float* __restrict__ cot,
+                                        const int32_t* __restrict__ table,
+                                        float* __restrict__ d_emb,
+                                        int L, int B) {
+  __shared__ int32_t tab[kMaxLevels * kTableCols];
+  for (int i = threadIdx.x; i < L * kTableCols; i += blockDim.x) {
+    tab[i] = table[i];
+  }
+  __syncthreads();
+
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= static_cast<int64_t>(L) * B) return;
+  const int l = static_cast<int>(t / B);
+  const int64_t j = t - static_cast<int64_t>(l) * B;
+
+  const float c0 = cot[(j * L + l) * 2];
+  const float c1 = cot[(j * L + l) * 2 + 1];
+  if (c0 == 0.0f && c1 == 0.0f) return;
+
+  const int32_t* g = tab + l * kTableCols;
+  const uint32_t size = static_cast<uint32_t>(g[0]);
+  const uint32_t offset = static_cast<uint32_t>(g[1]);
+  const uint32_t b = static_cast<uint32_t>(base[t]);
+  const float* wl = w + static_cast<int64_t>(l) * 8 * B + j;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float wc = wl[static_cast<int64_t>(c) * B];
+    const uint32_t row = offset + (b + static_cast<uint32_t>(g[2 + c])) % size;
+    atomicAdd(d_emb + 2 * static_cast<int64_t>(row), wc * c0);
+    atomicAdd(d_emb + 2 * static_cast<int64_t>(row) + 1, wc * c1);
+  }
+}
+
+}  // namespace
+
+extern "C" int grid_encoder_bwd(const void* base, const void* w,
+                                const void* cot, const void* table,
+                                void* d_emb, int L, int B, void* stream) {
+  if (L > kMaxLevels) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t n = static_cast<int64_t>(L) * B;
+  if (n == 0) return 0;
+  const int threads = 256;
+  const int64_t blocks = (n + threads - 1) / threads;
+  grid_encoder_bwd_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(base), static_cast<const float*>(w),
+      static_cast<const float*>(cot), static_cast<const int32_t*>(table),
+      static_cast<float*>(d_emb), L, B);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,116 @@
+"""Flash attention with its backward (counterpart of the flash branch of
+dreamfusion_tpu/guidance/sd/layers.py::attention_core, which reaches the
+stock Pallas TPU flash-attention kernel).
+
+``flash_attention(q, k, v, scale)``: q, k, v [B, N, H, D] bf16 ->
+softmax(scale q k^T) v per head, [B, N, H, D] bf16, with the scores, the
+softmax and the sums in f32. On a CUDA tensor it launches the hand-written
+kernels of csrc/flash_attention.cu (``attention_fwd``, and
+``attention_bwd`` when autograd asks for the gradient); on a CPU tensor it
+runs ``attention_plain``, which autograd differentiates and which is also
+what the kernels are held against on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from dreamfusion_torch.ops import cuda
+
+MAX_HEAD_DIM = 512      # widest head the kernels take (the VAE's 512)
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """[B, N, H, D] -> [B, N, H, D] in q's dtype; scores and softmax in f32
+    (f64 for f64 inputs)."""
+    ct = torch.promote_types(q.dtype, torch.float32)
+    qf, kf, vf = (x.to(ct).transpose(1, 2) for x in (q, k, v))
+    p = torch.softmax(torch.matmul(qf, kf.transpose(-1, -2)) * scale, dim=-1)
+    return torch.matmul(p, vf).transpose(1, 2).to(q.dtype)
+
+
+# -- kernel wrappers -----------------------------------------------------------
+
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _lib():
+    lib = cuda.library("flash_attention")
+    if not getattr(lib, "_typed", False):
+        lib.attention_fwd.argtypes = [_VP] * 5 + [_I] * 4 + [_F, _VP]
+        lib.attention_fwd.restype = _I
+        lib.attention_bwd.argtypes = [_VP] * 10 + [_I] * 4 + [_F, _VP]
+        lib.attention_bwd.restype = _I
+        lib._typed = True
+    return lib
+
+
+def _check_inputs(q, k, v):
+    if q.ndim != 4:
+        raise ValueError(f"q must be [B, N, H, D], got {tuple(q.shape)}")
+    B, N, H, D = q.shape
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        cuda.require(t, name, torch.bfloat16, (B, N, H, D), q.device)
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"head width {D} > {MAX_HEAD_DIM}")
+    return B, N, H, D
+
+
+def attention_fwd_cuda(q, k, v, scale: float):
+    """Forward kernel -> (o [B, N, H, D] bf16, lse [B, H, N] f32, base 2)."""
+    B, N, H, D = _check_inputs(q, k, v)
+    o = torch.empty_like(q)
+    lse = torch.empty(B, H, N, device=q.device, dtype=torch.float32)
+    err = _lib().attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               o.data_ptr(), lse.data_ptr(), B, N, H, D,
+                               float(scale), cuda.stream_ptr(q.device))
+    cuda.check_launch(err, "attention_fwd")
+    cuda.launch_counts["attention_fwd"] += 1
+    return o, lse
+
+
+def attention_bwd_cuda(q, k, v, o, lse, do, scale: float):
+    """Backward kernels -> (dq, dk, dv), each [B, N, H, D] bf16."""
+    B, N, H, D = _check_inputs(q, k, v)
+    cuda.require(o, "o", torch.bfloat16, (B, N, H, D), q.device)
+    cuda.require(do, "do", torch.bfloat16, (B, N, H, D), q.device)
+    cuda.require(lse, "lse", torch.float32, (B, H, N), q.device)
+    delta = torch.empty_like(lse)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    err = _lib().attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                               delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                               dv.data_ptr(), B, N, H, D, float(scale),
+                               cuda.stream_ptr(q.device))
+    cuda.check_launch(err, "attention_bwd")
+    cuda.launch_counts["attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        q, k, v = (x.contiguous() for x in (q, k, v))
+        o, lse = attention_fwd_cuda(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = attention_bwd_cuda(
+            q, k, v, o, lse, do.to(torch.bfloat16).contiguous(), ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """softmax(scale q k^T) v over [B, N, H, D]: the kernels on a CUDA
+    tensor, ``attention_plain`` on a CPU tensor."""
+    if q.is_cuda:
+        return _FlashAttention.apply(q, k, v, float(scale))
+    return attention_plain(q, k, v, scale)

@@ -1,0 +1,295 @@
+"""Multiresolution tiled grid encoder (counterpart of
+dreamfusion_tpu/ops/grid_encoder.py; reference gridencoder/).
+
+Geometry, index arithmetic, init and the out-of-bounds -> 0 rule follow the
+JAX package exactly:
+- level scale = exp2(l * log2(per_level_scale)) * base_resolution - 1,
+  resolution = ceil(scale) + 1;
+- position = x01 * scale + 0.5, trilinear over the 8 corners;
+- row index: linear strides while stride <= table size, then % size; the
+  arithmetic is uint32 in the reference, done here in int64 masked to 32
+  bits (torch has no full uint32 multiply);
+- per-level table sizes capped at 2**log2_hashmap_size, rounded up to a
+  multiple of 8, flat [T, C] table; init U(-1e-4, 1e-4).
+
+Every level of the tiled grid is affine: corner c of a sample with corner-0
+row ``base`` lives at ``(base + corner_off_c) % size``. The forward is a
+plain gather plus trilinear blend (the JAX forward is XLA ``take``, not a
+Pallas kernel). The backward is ``_EncodeLevels.backward``: on CUDA it
+launches kernel A (csrc/grid_encoder_bwd.cu), on the CPU it runs
+``grid_encoder_bwd_plain`` (``index_add_`` of the 8 corners per level, the
+JAX ``pallas is None`` branch, grid_encoder.py:166-173).
+
+Gradients w.r.t. the positions are not propagated (reference default
+calc_grad_inputs=False). The spec is the tiled grid only: the hashed grid
+type (gridtype="hash" in the JAX package, kernel K1c) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from dreamfusion_torch.device import resolve_device
+from dreamfusion_torch.ops import cuda
+
+_U32 = (1 << 32) - 1
+
+
+def _level_geometry(num_levels, base_resolution, per_level_scale,
+                    log2_hashmap_size, input_dim, align_corners):
+    """Static per-level (scale, resolution, size, offset) and total rows."""
+    max_params = 2 ** log2_hashmap_size
+    S = math.log2(per_level_scale)
+    scales, resolutions, sizes, offsets = [], [], [], []
+    offset = 0
+    for lvl in range(num_levels):
+        scale = math.exp2(lvl * S) * base_resolution - 1.0
+        resolution = int(math.ceil(scale)) + 1
+        res_alloc = int(math.ceil(base_resolution * per_level_scale ** lvl))
+        params = min(max_params,
+                     (res_alloc if align_corners else res_alloc + 1) ** input_dim)
+        params = int(math.ceil(params / 8) * 8)
+        scales.append(scale)
+        resolutions.append(resolution)
+        sizes.append(params)
+        offsets.append(offset)
+        offset += params
+    return scales, resolutions, sizes, offsets, offset
+
+
+@dataclass(frozen=True)
+class GridEncoderSpec:
+    """Static geometry of the tiled grid encoder (reference
+    grid.py:92-133, gridtype="tiled")."""
+    input_dim: int = 3
+    num_levels: int = 16
+    level_dim: int = 2
+    per_level_scale: float = 2.0
+    base_resolution: int = 16
+    log2_hashmap_size: int = 19
+    desired_resolution: Optional[float] = None
+    align_corners: bool = False
+
+    def __post_init__(self):
+        if self.desired_resolution is not None:
+            pls = math.exp2(math.log2(self.desired_resolution
+                                      / self.base_resolution)
+                            / (self.num_levels - 1))
+            object.__setattr__(self, "per_level_scale", pls)
+            object.__setattr__(self, "desired_resolution", None)
+
+    @property
+    def output_dim(self) -> int:
+        return self.num_levels * self.level_dim
+
+    @property
+    def geometry(self):
+        return _level_geometry(self.num_levels, self.base_resolution,
+                               self.per_level_scale, self.log2_hashmap_size,
+                               self.input_dim, self.align_corners)
+
+    @property
+    def table_size(self) -> int:
+        return self.geometry[4]
+
+    def init(self, generator: Optional[torch.Generator] = None,
+             device: Optional[torch.device] = None) -> torch.Tensor:
+        """Flat [T, level_dim] table, U(-1e-4, 1e-4)."""
+        u = torch.rand(self.table_size, self.level_dim, generator=generator,
+                       device=resolve_device(device))
+        return u * 2e-4 - 1e-4
+
+    def _strides(self, level: int):
+        _, resolutions, sizes, _, _ = self.geometry
+        size = sizes[level]
+        mult = resolutions[level] if self.align_corners else resolutions[level] + 1
+        stride, strides = 1, {}
+        for d in range(self.input_dim):
+            if stride > size:
+                break
+            strides[d] = stride
+            stride = (stride * mult) & _U32
+        return strides
+
+    def _corner_index_fn(self, level: int):
+        """fn(coords [..., D] int64) -> flat row [...] (offset included),
+        get_grid_index of gridencoder.cu:54-72 with uint32 wrap-around."""
+        _, _, sizes, offsets, _ = self.geometry
+        size, offset = sizes[level], offsets[level]
+        strides = self._strides(level)
+
+        def index_fn(coords: torch.Tensor) -> torch.Tensor:
+            coords = coords.long() & _U32
+            idx = torch.zeros(coords.shape[:-1], dtype=torch.int64,
+                              device=coords.device)
+            for d, s in strides.items():
+                idx = (idx + coords[..., d] * s) & _U32
+            return idx % size + offset
+
+        return index_fn
+
+    def _corner_offsets(self, level: int) -> Tuple[int, ...]:
+        """(corner_index - corner0_index) % size for the 2^D corners."""
+        _, _, sizes, _, _ = self.geometry
+        strides = self._strides(level)
+        offs = []
+        for corner in range(1 << self.input_dim):
+            o = sum(s for d, s in strides.items() if (corner >> d) & 1)
+            offs.append(o % sizes[level])
+        return tuple(offs)
+
+    def level_table(self, device: torch.device) -> torch.Tensor:
+        """[L, 2 + 2^D] int32: size, offset, corner offsets per level (the
+        kernel's constant table)."""
+        _, _, sizes, offsets, _ = self.geometry
+        rows = []
+        for lvl in range(self.num_levels):
+            rows.append([sizes[lvl], offsets[lvl], *self._corner_offsets(lvl)])
+        return torch.tensor(rows, dtype=torch.int32, device=device)
+
+    def residuals(self, inputs: torch.Tensor, bound: float = 1.0):
+        """Positions [B, D] in [-bound, bound] -> (base_all [L,B] int32
+        local corner-0 rows, w_all [L, 2^D, B] f32 weights, oob [B] bool).
+        These are the JAX VJP's residuals and kernel A's inputs."""
+        x = inputs.reshape(-1, self.input_dim).float()
+        x01 = (x + bound) / (2.0 * bound)
+        oob = ((x01 < 0.0) | (x01 > 1.0)).any(-1)
+        scales, _, _, offsets, _ = self.geometry
+        xT = x01.t()
+        bases, weights = [], []
+        for lvl in range(self.num_levels):
+            pos = xT * scales[lvl] + (0.0 if self.align_corners else 0.5)
+            pos_grid = torch.floor(pos)
+            frac = pos - pos_grid
+            idx0 = self._corner_index_fn(lvl)(pos_grid.long().t())
+            ws = []
+            for corner in range(1 << self.input_dim):
+                w = torch.ones_like(frac[0])
+                for d in range(self.input_dim):
+                    w = w * (frac[d] if (corner >> d) & 1 else 1.0 - frac[d])
+                ws.append(w)
+            bases.append((idx0 - offsets[lvl]).to(torch.int32))
+            weights.append(torch.stack(ws))
+        return torch.stack(bases), torch.stack(weights), oob
+
+    def __call__(self, embeddings: torch.Tensor, inputs: torch.Tensor,
+                 bound: float = 1.0) -> torch.Tensor:
+        """Encode positions in [-bound, bound] -> [..., L*C] features."""
+        prefix = inputs.shape[:-1]
+        with torch.no_grad():
+            base_all, w_all, oob = self.residuals(inputs, bound)
+        out = _EncodeLevels.apply(embeddings, base_all, w_all,
+                                  _level_consts(self, embeddings.device))
+        out = out.reshape(out.shape[0], -1)
+        out = torch.where(oob[:, None], torch.zeros_like(out), out)
+        return out.reshape(*prefix, self.output_dim)
+
+
+class _LevelConsts:
+    """Per-device constants of one spec: the kernel table and the corner
+    offsets as tensors."""
+
+    def __init__(self, spec: GridEncoderSpec, device: torch.device):
+        self.table = spec.level_table(device)
+        self.sizes = self.table[:, 0].long()
+        self.offsets = self.table[:, 1].long()
+        self.corner_offs = self.table[:, 2:].long()         # [L, 8]
+        self.total = spec.table_size
+
+
+_CONSTS: Dict[Tuple[GridEncoderSpec, str], _LevelConsts] = {}
+
+
+def _level_consts(spec: GridEncoderSpec, device: torch.device) -> _LevelConsts:
+    key = (spec, str(device))
+    if key not in _CONSTS:
+        _CONSTS[key] = _LevelConsts(spec, device)
+    return _CONSTS[key]
+
+
+def _corner_rows(consts: _LevelConsts, base_all: torch.Tensor, lvl: int):
+    """[8, B] flat table rows of the 8 corners at level lvl."""
+    base = base_all[lvl].long()
+    return (base[None, :] + consts.corner_offs[lvl][:, None]) \
+        % consts.sizes[lvl] + consts.offsets[lvl]
+
+
+def encode_fwd(emb, base_all, w_all, consts: _LevelConsts) -> torch.Tensor:
+    """Plain gather + trilinear blend -> [B, L, C] (f32)."""
+    outs = []
+    for lvl in range(base_all.shape[0]):
+        vals = emb[_corner_rows(consts, base_all, lvl)].float()   # [8, B, C]
+        outs.append((w_all[lvl][..., None] * vals).sum(0))
+    return torch.stack(outs, dim=1)
+
+
+def grid_encoder_bwd_plain(base_all, w_all, cot, consts: _LevelConsts
+                           ) -> torch.Tensor:
+    """d_emb [T, C]: index_add_ of w_c * cot for the 8 corners per level."""
+    L = base_all.shape[0]
+    d = torch.zeros(consts.total, cot.shape[-1], device=cot.device,
+                    dtype=torch.float32)
+    for lvl in range(L):
+        rows = _corner_rows(consts, base_all, lvl)
+        for c in range(rows.shape[0]):
+            d.index_add_(0, rows[c], w_all[lvl, c][:, None] * cot[:, lvl, :])
+    return d
+
+
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _lib():
+    lib = cuda.library("grid_encoder_bwd")
+    if not getattr(lib, "_typed", False):
+        lib.grid_encoder_bwd.argtypes = [_VP] * 5 + [_I, _I, _VP]
+        lib.grid_encoder_bwd.restype = _I
+        lib._typed = True
+    return lib
+
+
+def grid_encoder_bwd_cuda(base_all, w_all, cot, consts: _LevelConsts
+                          ) -> torch.Tensor:
+    """Kernel A: same contract as grid_encoder_bwd_plain (C = 2, 8 corners)."""
+    L, B = base_all.shape
+    dev = base_all.device
+    cuda.require(base_all, "base_all", torch.int32, (L, B))
+    cuda.require(w_all, "w_all", torch.float32, (L, 8, B), dev)
+    cuda.require(cot, "cot", torch.float32, (B, L, 2), dev)
+    cuda.require(consts.table, "level table", torch.int32, (L, 10), dev)
+    d = torch.zeros(consts.total, 2, device=dev, dtype=torch.float32)
+    err = _lib().grid_encoder_bwd(base_all.data_ptr(), w_all.data_ptr(),
+                                  cot.data_ptr(), consts.table.data_ptr(),
+                                  d.data_ptr(), L, B, cuda.stream_ptr(dev))
+    cuda.check_launch(err, "grid_encoder_bwd")
+    cuda.launch_counts["grid_encoder_bwd"] += 1
+    return d
+
+
+def grid_encoder_bwd(base_all, w_all, cot, consts: _LevelConsts):
+    if cot.is_cuda:
+        return grid_encoder_bwd_cuda(base_all, w_all, cot, consts)
+    return grid_encoder_bwd_plain(base_all, w_all, cot, consts)
+
+
+class _EncodeLevels(torch.autograd.Function):
+    """emb [T, C], base_all [L, B], w_all [L, 8, B] -> [B, L, C]."""
+
+    @staticmethod
+    def forward(ctx, emb, base_all, w_all, consts):
+        ctx.save_for_backward(base_all, w_all)
+        ctx.consts = consts
+        ctx.emb_dtype = emb.dtype
+        return encode_fwd(emb, base_all, w_all, consts)
+
+    @staticmethod
+    def backward(ctx, cot):
+        base_all, w_all = ctx.saved_tensors
+        d = grid_encoder_bwd(base_all, w_all, cot.float().contiguous(),
+                             ctx.consts)
+        return d.to(ctx.emb_dtype), None, None, None

@@ -1,0 +1,62 @@
+"""Parameter conversion from the JAX package's flax trees to the port's
+state dicts.
+
+``from_jax_params(np_tree)`` takes a nested dict of numpy arrays (a flax
+``params`` tree, with or without its top ``{"params": ...}`` level) and
+returns a flat PyTorch state dict. The port's modules carry the flax
+module names, so the conversion is mechanical:
+- Dense ``kernel`` [in, out] -> ``weight`` [out, in];
+- Conv ``kernel`` HWIO -> ``weight`` OIHW;
+- GroupNorm / LayerNorm ``scale`` -> ``weight``;
+- ``bias`` and the grid table ``embeddings`` unchanged.
+It covers the NeRF (tables, MLPs, background net) and the SD UNet and VAE.
+VAE decoder parameters are dropped: the port's VAE is encoder-only.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+_DROPPED_PREFIXES = ("decoder.", "post_quant_conv.")
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    flat = {}
+    for k, v in tree.items():
+        if k == "params" and not prefix:
+            flat.update(_flatten(v, prefix))
+            continue
+        name = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            flat.update(_flatten(v, name + "."))
+        else:
+            flat[name] = np.asarray(v)
+    return flat
+
+
+def _convert(name: str, arr: np.ndarray):
+    base, _, leaf = name.rpartition(".")
+    stem = f"{base}." if base else ""
+    if leaf == "kernel":
+        if arr.ndim == 2:
+            return stem + "weight", arr.T
+        if arr.ndim == 4:
+            return stem + "weight", arr.transpose(3, 2, 0, 1)
+        raise ValueError(f"unexpected kernel rank {arr.ndim} at {name}")
+    if leaf == "scale":
+        return stem + "weight", arr
+    return name, arr
+
+
+def from_jax_params(np_tree: Mapping) -> Dict[str, torch.Tensor]:
+    """flax params (numpy leaves) -> PyTorch state dict (f32 tensors)."""
+    out = {}
+    for name, arr in _flatten(np_tree).items():
+        if name.startswith(_DROPPED_PREFIXES):
+            continue
+        key, val = _convert(name, arr)
+        out[key] = torch.from_numpy(np.array(val, np.float32, order="C"))
+    return out

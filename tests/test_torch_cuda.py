@@ -1,0 +1,99 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+These need an NVIDIA GPU with nvcc (the kernels are built from
+dreamfusion_torch/csrc at first use) and skip elsewhere. Run them on the
+GPU machine with
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q
+"""
+
+import math
+
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def test_grid_encoder_bwd_kernel_matches_index_add(dev):
+    """Kernel A vs index_add_ at all 16 tiled levels; atomics sum in
+    another order, so 1e-5 of the largest entry."""
+    from dreamfusion_torch.ops import cuda as kcuda
+    from dreamfusion_torch.ops import grid_encoder as ge
+
+    spec = ge.GridEncoderSpec(num_levels=16, level_dim=2, base_resolution=16,
+                              log2_hashmap_size=16, desired_resolution=2048)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.rand(50_000, 3, device=dev, generator=g) * 2 - 1
+    base, w, _ = spec.residuals(x)
+    cot = torch.randn(x.shape[0], 16, 2, device=dev, generator=g)
+    cot[:100] = 0.0                                  # skipped samples
+    consts = ge._level_consts(spec, dev)
+    n0 = kcuda.launch_counts["grid_encoder_bwd"]
+    d_k = ge.grid_encoder_bwd(base, w, cot, consts)
+    assert kcuda.launch_counts["grid_encoder_bwd"] == n0 + 1
+    d_p = ge.grid_encoder_bwd_plain(base, w, cot, consts)
+    torch.cuda.synchronize()
+    assert (d_k - d_p).abs().max() <= 1e-5 * d_p.abs().max()
+
+
+@pytest.mark.parametrize("K", [32, 128])
+def test_fused_composite_kernels_match_plain(dev, K):
+    """Kernels B-fwd / B-bwd vs the plain formulas, rays crossing
+    T_thresh; fwd 1e-5, bwd 1e-4 of the largest entry."""
+    from dreamfusion_torch.ops import fused_composite as fc
+
+    g = torch.Generator(device=dev).manual_seed(K)
+    N, T = 1000, 1e-4
+    sig = torch.rand(N, K, device=dev, generator=g) * 600.0
+    sig[::2] *= 0.02
+    rgb = torch.rand(N, K, 3, device=dev, generator=g)
+    dt = torch.full((N, K), 2 * math.sqrt(3) / 512, device=dev)
+    ts = torch.cumsum(dt, -1) + 0.3
+    gws, gd = (torch.randn(N, device=dev, generator=g) for _ in range(2))
+    gc = torch.randn(N, 3, device=dev, generator=g)
+    for a, b in zip(fc.composite_fwd_cuda(sig, rgb, dt, ts, T),
+                    fc.composite_fwd_plain(sig, rgb, dt, ts, T)):
+        assert (a - b).abs().max() <= 1e-5
+    for a, b in zip(fc.composite_bwd_cuda(sig, rgb, dt, ts, gws, gd, gc, T),
+                    fc.composite_bwd_plain(sig, rgb, dt, ts, gws, gd, gc, T)):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+    # autograd through the Function reaches both kernels
+    s = sig.clone().requires_grad_(True)
+    out = fc.composite_fused(s, rgb, dt, ts, T)
+    out.rgb.sum().backward()
+    assert torch.isfinite(s.grad).all()
+
+
+@pytest.mark.parametrize("B,N,H,D", [(2, 4096, 8, 40), (1, 4096, 1, 512),
+                                     (1, 200, 2, 40)])
+def test_flash_attention_kernels_match_plain(dev, B, N, H, D):
+    """attention_fwd / attention_bwd vs attention_plain (f32 scores and
+    softmax) on bf16 inputs: bf16 outputs, and P and dS enter the products
+    in bf16, so 1e-2 (values) and 2e-2 (gradients) of the largest entry."""
+    from dreamfusion_torch.ops import cuda as kcuda
+    from dreamfusion_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(D)
+    q, k, v, do = (torch.randn(B, N, H, D, device=dev, generator=g)
+                   .to(torch.bfloat16) for _ in range(4))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    n0 = dict(kcuda.launch_counts)
+    out = fa.flash_attention(*leaves, 1.0 / math.sqrt(D))
+    grads = torch.autograd.grad(out, leaves, do)
+    assert kcuda.launch_counts["attention_fwd"] == n0["attention_fwd"] + 1
+    assert kcuda.launch_counts["attention_bwd"] == n0["attention_bwd"] + 1
+    ref_leaves = [x.float().requires_grad_(True) for x in (q, k, v)]
+    ref = fa.attention_plain(*ref_leaves, 1.0 / math.sqrt(D))
+    refs = torch.autograd.grad(ref, ref_leaves, do.float())
+    torch.cuda.synchronize()
+    assert (out.float() - ref).abs().max() <= 1e-2 * ref.abs().max()
+    for a, b in zip(grads, refs):
+        assert (a.float() - b).abs().max() <= 2e-2 * b.abs().max()
