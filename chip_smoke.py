@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch port (dreamfusion_torch) on one GPU.
 
-    python3 chip_smoke.py                 # all phases (what the check runs)
+    python3 chip_smoke.py                 # default phases (what the check runs)
     python3 chip_smoke.py --phases build,kernels
-    python3 chip_smoke.py --phases build,small,train,kernels,profile
+    python3 chip_smoke.py --phases build,train,eval,kernels,profile
 
 Phases:
   build    compile every CUDA kernel of the main path from
@@ -18,16 +18,32 @@ Phases:
            initialised SD-v1.5-sized UNet and VAE, ~20 steps crossing the
            occupancy refreshes at steps 0 and 16; every launch count is set
            to 0 just before and read just after;
+  eval     the second path, on the trained trainer: the staged 800x800
+           eval (Trainer._render_orbit_frame, as Trainer.evaluate and
+           Trainer.test render), one warm frame and 3 orbit frames with the
+           launch counts set to 0 just before and read just after; frames/s
+           and the synced wall of each stage over the same 3 frames; frame
+           1 once more to capture the inputs of kernels C and D, and that
+           staged frame held against
+           a direct full-K render_grid of the same pose (4,096-ray chunks):
+           the f32 table, with the live cut and without, to rtol 1e-4 /
+           atol 1e-5, the default bf16 view to 5e-2 / 2e-2;
   kernels  each kernel against its plain PyTorch version on the card at the
-           main path's shapes (grid-encoder scatter at the dense and the
+           main paths' shapes (grid-encoder scatter at the dense and the
            compacted steps' sample counts and all 16 level sizes, plus a
            4,096-row level; the compositor at N = 4,096 rays with K in
            {32, 128} and the main path's K; flash attention at the UNet's
            and the VAE's 4,096-token self-attention, the VAE's with its
-           backward), with times for kernel, plain version and, where one
-           exists, one library call computing the same function;
+           backward; the eval's row scatter at the compact budgets its
+           groups used and its probe gather at the frame's classify
+           probes), with times for kernel, plain version and, where one
+           exists, one library call computing the same function (CUDA
+           events; for the eval's two kernels, which take less time than
+           the host needs to issue them, device time from torch.profiler;
+           those two are checked only after the eval phase, at its inputs);
   profile  (not in the default run) torch.profiler over 3 more main-path
-           steps: device time per trainer span and per kernel, busy share.
+           steps and one eval frame: device time per span and per kernel,
+           busy share.
 
 Output: human-readable lines, then a {"kernels": [...]} JSON line, the
 card's name and power limit from nvidia-smi, and last
@@ -64,6 +80,8 @@ REPLACES = {
     # the stock Pallas TPU flash attention, reached from its flash branch
     "attention_fwd": "dreamfusion_tpu/guidance/sd/layers.py:130",
     "attention_bwd": "dreamfusion_tpu/guidance/sd/layers.py:130",
+    "scatter_add_wide": "dreamfusion_tpu/ops/pallas_scatter.py:735",
+    "probe_select_small": "dreamfusion_tpu/ops/pallas_probe.py:72",
 }
 SOURCES = {
     "grid_encoder_bwd": "dreamfusion_torch/csrc/grid_encoder_bwd.cu",
@@ -71,7 +89,15 @@ SOURCES = {
     "composite_bwd": "dreamfusion_torch/csrc/fused_composite.cu",
     "attention_fwd": "dreamfusion_torch/csrc/flash_attention.cu",
     "attention_bwd": "dreamfusion_torch/csrc/flash_attention.cu",
+    "scatter_add_wide": "dreamfusion_torch/csrc/scatter_wide.cu",
+    "probe_select_small": "dreamfusion_torch/csrc/probe_select.cu",
 }
+# the kernels of each path the script drives
+TRAIN_KERNELS = ("grid_encoder_bwd", "composite_fwd", "composite_bwd",
+                 "attention_fwd", "attention_bwd")
+# (the eval's dense groups, those whose live count fills the K bucket,
+# composite through kernel B-fwd)
+EVAL_KERNELS = ("scatter_add_wide", "probe_select_small", "composite_fwd")
 
 
 def log(msg: str) -> None:
@@ -90,6 +116,27 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device time of fn() per call: the summed time of the kernels it
+    launches, from torch.profiler. For calls whose kernels take less time
+    than the host needs to issue them, where CUDA events around a run of
+    calls would time the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0))
+                for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA"))
+    return total / 1e3 / reps
 
 
 def bound(nbytes: float, flops: float, peak: float = H100_F32_FLOPS):
@@ -313,9 +360,148 @@ def phase_train(steps: int, warmup: int):
     log(f"[train] kernels {json.dumps(counts)}")
     if not bool(torch.isfinite(losses).all()) or len(losses) != steps:
         raise AssertionError("non-finite loss in the train phase")
-    if min(counts.values()) <= 0:
+    if min(counts[k] for k in TRAIN_KERNELS) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: {counts}")
     return trainer, counts
+
+
+def _frame_gap(out, ref, rtol, atol):
+    """(max abs error over image, weights_sum and depth; pixels where any
+    of them lies outside atol + rtol |ref|)."""
+    err, off = 0.0, None
+    for k in ("image", "weights_sum", "depth"):
+        b = ref[k].reshape(ref[k].shape[0], -1)
+        gap = (out[k].reshape(b.shape) - b).abs()
+        err = max(err, float(gap.max()))
+        o = (gap > atol + rtol * b.abs()).any(-1)
+        off = o if off is None else off | o
+    return err, int(off.sum())
+
+
+def phase_eval(trainer, frames: int = 3):
+    """The staged 800x800 eval on the trained trainer: frames/s and stage
+    walls over the same frames, the eval path's launch counts, and a staged
+    frame against the direct full-K render_grid. Returns (counts, captured
+    inputs of kernels C and D).
+
+    Each timed frame ends its stages in a device sync. Classify and march
+    end in a host transfer anyway, so the syncs add little; frames/s is
+    read from the synced frames so that the stage walls sum to it."""
+    from dreamfusion_torch import cameras
+    from dreamfusion_torch.models.networks import make_field_fns
+    from dreamfusion_torch.ops import cuda as kcuda
+    from dreamfusion_torch.ops import marching, probe
+    from dreamfusion_torch.training import trainer as tr_mod
+
+    cfg = trainer.cfg
+    H, W, size, dev = cfg.H, cfg.W, cfg.test_size, trainer.device
+    gs = trainer.grid_state
+    log(f"[eval] {H}x{W} frames of a {size}-frame orbit; group "
+        f"{cfg.max_ray_batch}, grid {cfg.grid_size}^3 ({float(gs.occ.float().mean()):.4f} "
+        f"occupied), max_steps {cfg.max_steps}, grid_K {cfg.grid_K}, bf16 "
+        f"table {cfg.eval_table_bf16}")
+    torch.cuda.synchronize()
+    kcuda.reset_counts()
+    t0 = time.perf_counter()
+    trainer._render_orbit_frame(0, size, H, W)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    walls, stages, outs, shaded = [], [], [], []
+    for i in range(1, frames + 1):
+        timings, before = {}, dict(kcuda.launch_counts)
+        t1 = time.perf_counter()
+        outs.append(trainer._render_orbit_frame(i, size, H, W,
+                                                timings=timings))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+        stages.append(timings)
+        # each shaded group launches kernel C (compact) or B-fwd (dense)
+        shaded.append(tuple(kcuda.launch_counts[k] - before[k]
+                            for k in ("scatter_add_wide", "composite_fwd")))
+    counts = dict(kcuda.launch_counts)
+    dt = sum(walls)
+    ms = lambda xs: ", ".join(f"{x * 1e3:.2f}" for x in xs)  # noqa: E731
+    log(f"[eval] warm frame {warm:.3f} s; frames/s over frames 1..{frames}: "
+        f"{frames / dt:.4f} ({dt / frames * 1e3:.2f} ms a frame; frames "
+        f"{ms(walls)} ms)")
+    for name in stages[0]:
+        vals = [s[name] for s in stages]
+        log(f"[eval] stage {name}, synced wall over frames 1..{frames}: "
+            f"mean {sum(vals) / frames * 1e3:.2f} ms (frames {ms(vals)})")
+    log(f"[eval] stage walls summed per frame {ms(sum(s.values()) for s in stages)}"
+        f" ms; the rest of each frame's wall (its rays, the host between "
+        f"stages) {ms(w - sum(s.values()) for w, s in zip(walls, stages))} ms")
+    log("[eval] groups shaded per frame, compact (C) + dense (B-fwd): "
+        + ", ".join(f"{c} + {b}" for c, b in shaded))
+    log(f"[eval] kernels {json.dumps(counts)}")
+    if min(counts[k] for k in EVAL_KERNELS) <= 0:
+        raise AssertionError(f"a kernel of the eval path never launched: "
+                             f"{counts}")
+    for out in outs:
+        if out["image"].shape != (H, W, 3) or not all(
+                bool(torch.isfinite(v).all()) for v in out.values()):
+            raise AssertionError("eval frame of the wrong shape or not finite")
+
+    # frame 1 again (untimed), keeping the inputs of kernels C and D
+    captured = {"C": {}, "D": None}
+    scatter_fn, probe_fn = marching.scatter_add_wide, probe.probe_select_small
+
+    def scatter_spy(idx, upd, T):
+        n, _ = captured["C"].get(idx.shape[0], (0, None))
+        captured["C"][idx.shape[0]] = (n + 1, (idx.clone(), upd.clone(), T))
+        return scatter_fn(idx, upd, T)
+
+    def probe_spy(table, idx):
+        captured["D"] = (table.clone(), idx.clone())
+        return probe_fn(table, idx)
+
+    marching.scatter_add_wide, probe.probe_select_small = scatter_spy, probe_spy
+    try:
+        staged = trainer._render_orbit_frame(1, size, H, W)
+    finally:
+        marching.scatter_add_wide, probe.probe_select_small = (scatter_fn,
+                                                               probe_fn)
+    log("[eval] compact budgets (samples in a group: groups) "
+        + ", ".join(f"{J:,}: {n}" for J, (n, _) in sorted(captured["C"].items()))
+        + f"; classify probes {captured['D'][1].shape[0]:,} into a table of "
+        f"{captured['D'][0].shape[0]:,}")
+
+    # the direct full-K render of the same pose, in 4,096-ray chunks
+    b = cameras.sample_test_batch(1, size, cfg, H=H, W=W, device=dev)
+    o, d = b["rays_o"][0], b["rays_d"][0]
+    fns = make_field_fns(trainer.model)._replace(normal=None)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        parts = [marching.render_grid(
+            fns, gs, o[s:s + 4096], d[s:s + 4096], bound=cfg.bound,
+            min_near=cfg.min_near, max_steps=cfg.max_steps, K=cfg.grid_K,
+            bg_radius=cfg.bg_radius, light_d=cameras.safe_normalize(o[0]),
+            perturb=False) for s in range(0, o.shape[0], 4096)]
+    ref = {k: torch.cat([p[k] for p in parts])
+           for k in ("image", "weights_sum", "depth")}
+    torch.cuda.synchronize()
+    log(f"[eval] direct render_grid of frame 1: {time.perf_counter() - t0:.2f} s")
+    f32 = tr_mod.make_staged_grid_eval(cfg.replace(eval_table_bf16=False),
+                                       trainer.model, H, W)
+    logt = tr_mod._LIVE_LOGT
+    tr_mod._LIVE_LOGT = math.inf
+    try:
+        f32_nocut = f32(o, d, gs)
+    finally:
+        tr_mod._LIVE_LOGT = logt
+    checks = [("f32 table, live cut off", f32_nocut, 1e-4, 1e-5),
+              ("f32 table, default live cut", f32(o, d, gs), 1e-4, 1e-5),
+              ("bf16 table (the default)", staged, 5e-2, 2e-2)]
+    failed = []
+    for label, out, rtol, atol in checks:
+        err, bad = _frame_gap(out, ref, rtol, atol)
+        log(f"[eval] staged vs direct, {label}: max_abs_err {err:.3e}, "
+            f"pixels outside rtol {rtol:g} / atol {atol:g}: {bad} of {H * W}")
+        if bad:
+            failed.append(label)
+    if failed:
+        raise AssertionError(f"staged eval disagrees with render_grid: {failed}")
+    return counts, captured
 
 
 def _real_positions(trainer, dense: bool = False):
@@ -523,7 +709,72 @@ def check_attention(B, N, H, D, gen, device, grad: bool):
     return res
 
 
-def phase_kernels(trainer, counts):
+def check_scatter_wide(idx, upd, T, label):
+    """Kernel C against index_add_ (its plain version) at one of the eval's
+    compact budgets; atomics and the warp tree sum in another order, so
+    1e-5 of the largest row sum."""
+    from dreamfusion_torch.ops import scatter_wide as sw
+
+    got = sw.scatter_add_wide_cuda(idx, upd, T)
+    ref = sw.scatter_add_wide_plain(idx, upd, T)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    tol = 1e-5 * float(ref.abs().max())
+    J, C = upd.shape
+    nonzero = int((upd != 0).any(-1).sum())
+    log(f"[kernels] C scatter_add_wide {label}: J={J:,} ({nonzero:,} with a "
+        f"non-zero update) C={C} T={T:,} max_abs_err {err:.3e} (tol {tol:.3e})")
+    if not err <= tol:
+        raise AssertionError(f"kernel C disagrees with index_add_ ({label})")
+    out = torch.zeros(T, C, device=upd.device)
+    b_ms, b_by = bound(J * (4 + 4 * C) + T * 4 * C, J * C)
+    kernel = lambda: sw.scatter_add_wide_cuda(idx, upd, T)   # noqa: E731
+    res = {"max_abs_err": err, "ms": device_ms(kernel),
+           "plain_ms": device_ms(lambda: sw.scatter_add_wide_plain(idx, upd,
+                                                                   T)),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": device_ms(lambda: out.index_add_(0, idx, upd))}
+    log(f"[kernels] C device times ({label}; the kernel's include the "
+        f"zeroing of its output): kernel {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms, index_add_ {res['library_ms']:.4f} ms, "
+        f"bound {b_ms:.5f} ms ({b_by}); CUDA events over 20 calls "
+        f"{cuda_ms(kernel):.4f} ms a call")
+    return res
+
+
+def check_probe(table, idx):
+    """Kernel D against the element gather (its plain version), exact."""
+    from dreamfusion_torch.ops import probe
+
+    got = probe.probe_select_small_cuda(table, idx)
+    ref = probe.probe_select_small_plain(table, idx)
+    torch.cuda.synchronize()
+    err = float((got.int() - ref.int()).abs().max())
+    T, J = table.shape[0], idx.shape[0]
+    log(f"[kernels] D probe_select_small: J={J:,} probes, T={T:,} "
+        f"({float(table.float().mean()):.4f} set), max_abs_err {err:g} "
+        f"(exact)")
+    if err != 0.0:
+        raise AssertionError("kernel D disagrees with the element gather")
+    b_ms, b_by = bound(J * (4 + 1) + T, 0)
+    kernel = lambda: probe.probe_select_small_cuda(table, idx)  # noqa: E731
+    res = {"max_abs_err": err, "ms": device_ms(kernel),
+           "plain_ms": device_ms(lambda: probe.probe_select_small_plain(
+               table, idx)),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": device_ms(lambda: torch.index_select(table, 0, idx))}
+    log(f"[kernels] D device times: kernel {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms, index_select {res['library_ms']:.4f} ms, "
+        f"bound {b_ms:.5f} ms ({b_by}); CUDA events over 20 calls "
+        f"{cuda_ms(kernel):.4f} ms a call")
+    return res
+
+
+def phase_kernels(trainer, counts, captured=None):
+    """Every kernel against its plain version; returns the entries of the
+    {"kernels": [...]} line. counts maps each path that ran ("train",
+    "eval") to its launch counts: an entry gives them per path and their
+    sum."""
     from dreamfusion_torch.ops.grid_encoder import GridEncoderSpec
 
     dev = torch.device("cuda")
@@ -556,28 +807,44 @@ def phase_kernels(trainer, counts):
     # 40, no gradient) and the VAE mid-block's (1 head of 512, gradient)
     unet_attn = check_attention(2, 4096, 8, 40, gen, dev, grad=False)
     vae_attn = check_attention(1, 4096, 1, 512, gen, dev, grad=True)
+    results = [("grid_encoder_bwd", a), ("composite_fwd", bf),
+               ("composite_bwd", bb), ("attention_fwd", unet_attn["fwd"]),
+               ("attention_bwd", vae_attn["bwd"])]
+    # the eval's kernels at the inputs its frame gave them: C at every
+    # compact budget the groups used (timed at the most used), D at the
+    # frame's classify probes
+    if captured is None:
+        log("[kernels] C and D skipped: they are checked at the eval "
+            "phase's inputs, and the eval phase did not run")
+    else:
+        by_use = sorted(captured["C"].items(), key=lambda kv: -kv[1][0])
+        c = None
+        for J, (n, (idx, upd, T)) in by_use:
+            r = check_scatter_wide(idx, upd, T, f"{n} group(s) at M={J:,}")
+            c = c or r
+        results += [("scatter_add_wide", c),
+                    ("probe_select_small", check_probe(*captured["D"]))]
     entries = []
-    for name, res in (("grid_encoder_bwd", a), ("composite_fwd", bf),
-                      ("composite_bwd", bb),
-                      ("attention_fwd", unet_attn["fwd"]),
-                      ("attention_bwd", vae_attn["bwd"])):
+    for name, res in results:
+        per_path = {f"launches_{path}": n.get(name, 0)
+                    for path, n in counts.items()}
         entries.append({"name": name, "route": "cuda", "source": SOURCES[name],
                         "replaces": REPLACES[name],
-                        "launches": (counts or {}).get(name, 0), **res})
+                        "launches": sum(per_path.values()), **per_path, **res})
     return entries
 
 
-def phase_profile(trainer, steps: int = 3):
-    """torch.profiler over `steps` main-path steps: device time per trainer
-    span and per kernel, and the device's busy share of the wall time."""
+def _profiled(fn, reps: int, label: str, spans):
+    """torch.profiler over reps calls of fn: device time per span (names
+    starting with one of spans) and per kernel, and the busy share."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            trainer.train_step()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -590,29 +857,38 @@ def phase_profile(trainer, steps: int = 3):
         return getattr(e, "device_time_total",
                        getattr(e, "cuda_time_total", 0)) / 1e3
 
-    spans = ("step/", "grid_")
     kernels = [e for e in events if str(e.device_type).endswith("CUDA")
                and not e.key.startswith(spans)]
     kernel_ms = sum(dev_self(e) for e in kernels)
-    log(f"[profile] {steps} steps under the profiler: wall {wall_ms / steps:.2f} "
-        f"ms/step, device kernels {kernel_ms / steps:.2f} ms/step, busy "
-        f"share {kernel_ms / wall_ms:.3f}")
+    log(f"[profile] {reps} x {label} under the profiler: wall "
+        f"{wall_ms / reps:.2f} ms/{label}, device kernels "
+        f"{kernel_ms / reps:.2f} ms/{label}, busy share "
+        f"{kernel_ms / wall_ms:.3f}")
     for e in sorted((e for e in events if e.key.startswith(spans)
                      and str(e.device_type).endswith("CPU")),
                     key=lambda e: -e.cpu_time_total):
-        log(f"[profile] span {e.key}: host {e.cpu_time_total / 1e3 / steps:.2f} "
-            f"ms/step, device time of its kernels {dev_total(e) / steps:.2f} "
-            f"ms/step")
+        log(f"[profile] span {e.key}: host {e.cpu_time_total / 1e3 / reps:.2f} "
+            f"ms/{label}, device time of its kernels "
+            f"{dev_total(e) / reps:.2f} ms/{label}")
     for e in sorted(kernels, key=dev_self, reverse=True)[:15]:
-        log(f"[profile] kernel {dev_self(e) / steps:8.3f} ms/step x"
-            f"{e.count // steps:<5d} {e.key[:90]}")
-    log(f"[profile] kernel launches per step: "
-        f"{sum(e.count for e in kernels) // steps}")
+        log(f"[profile] kernel {dev_self(e) / reps:8.3f} ms/{label} x"
+            f"{e.count // reps:<5d} {e.key[:90]}")
+    log(f"[profile] kernel launches per {label}: "
+        f"{sum(e.count for e in kernels) // reps}")
+
+
+def phase_profile(trainer, steps: int = 3):
+    """Main-path steps, then one eval frame, under torch.profiler."""
+    cfg = trainer.cfg
+    _profiled(trainer.train_step, steps, "step", ("step/", "grid_"))
+    _profiled(lambda: trainer._render_orbit_frame(1, cfg.test_size, cfg.H,
+                                                  cfg.W), 1, "frame",
+              ("eval/",))
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default="build,small,train,kernels")
+    p.add_argument("--phases", default="build,small,train,eval,kernels")
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--warmup", type=int, default=4)
     args = p.parse_args(argv)
@@ -633,14 +909,20 @@ def main(argv=None) -> int:
         f"{torch.backends.cuda.matmul.allow_tf32}, cudnn tf32 "
         f"{torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
-    trainer, counts = None, None
+    trainer, counts, captured = None, {}, None
     if "build" in phases:
         phase_build()
     if "small" in phases:
         phase_small()
     if "train" in phases:
-        trainer, counts = phase_train(args.steps, args.warmup)
-    entries = phase_kernels(trainer, counts) if "kernels" in phases else []
+        trainer, counts["train"] = phase_train(args.steps, args.warmup)
+    if "eval" in phases:
+        if trainer is None:
+            raise SystemExit("the eval phase renders the train phase's asset: "
+                             "add train to --phases")
+        counts["eval"], captured = phase_eval(trainer)
+    entries = (phase_kernels(trainer, counts, captured)
+               if "kernels" in phases else [])
     if "profile" in phases and trainer is not None:
         phase_profile(trainer)
     log(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -115,6 +115,26 @@ def rand_poses(size: int, *, radius_range=(1.0, 1.5),
     return poses, dirs, thetas, phis
 
 
+def circle_poses(phi_deg, radius: float = 1.25, theta_deg: float = 60.0,
+                 angle_overhead: float = 30.0, angle_front: float = 60.0,
+                 device: Optional[torch.device] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Deterministic orbit poses for the 360-degree test loop (reference:
+    nerf/provider.py:144-175). phi_deg: a number or [B] degrees. Returns
+    (poses [B,4,4], dirs [B])."""
+    device = resolve_device(device)
+    phi = torch.deg2rad(torch.atleast_1d(torch.as_tensor(
+        phi_deg, dtype=torch.float32, device=device)))
+    theta = torch.full_like(phi, math.radians(theta_deg))
+    centers = torch.stack([radius * torch.sin(theta) * torch.sin(phi),
+                           radius * torch.cos(theta),
+                           radius * torch.sin(theta) * torch.cos(phi)], dim=-1)
+    poses = _lookat_poses(centers, torch.zeros_like(centers))
+    dirs = get_view_direction(theta, phi, math.radians(angle_overhead),
+                              math.radians(angle_front))
+    return poses, dirs
+
+
 def get_rays(poses: torch.Tensor, intrinsics: Tuple[float, float, float, float],
              H: int, W: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-image rays: poses [B,4,4], intrinsics (fx, fy, cx, cy) ->
@@ -165,3 +185,24 @@ def sample_train_batch(cfg, *, generator: Optional[torch.Generator] = None,
                               cfg.h, cfg.w)
     return {"rays_o": rays_o, "rays_d": rays_d, "dir": dirs,
             "H": cfg.h, "W": cfg.w}
+
+
+def sample_test_batch(index, size: int, cfg, H: Optional[int] = None,
+                      W: Optional[int] = None,
+                      device: Optional[torch.device] = None):
+    """Deterministic test/val batch: frame index of size on a circle orbit at
+    theta = 60 degrees, radius 1.2 * r_max, mean fov (reference:
+    nerf/provider.py:214-222). Returns rays_o/rays_d [B, H*W, 3], dir [B]."""
+    H = H or cfg.H
+    W = W or cfg.W
+    device = resolve_device(device)
+    index = torch.atleast_1d(torch.as_tensor(index, device=device))
+    phi_deg = index.float() / size * 360.0
+    poses, dirs = circle_poses(phi_deg, radius=cfg.radius_range[1] * 1.2,
+                               theta_deg=60.0,
+                               angle_overhead=cfg.angle_overhead,
+                               angle_front=cfg.angle_front, device=device)
+    fov = (cfg.fovy_range[0] + cfg.fovy_range[1]) / 2.0
+    focal = fov_to_focal(torch.tensor(fov, device=device), H)
+    rays_o, rays_d = get_rays(poses, (focal, focal, W / 2.0, H / 2.0), H, W)
+    return {"rays_o": rays_o, "rays_d": rays_d, "dir": dirs, "H": H, "W": W}

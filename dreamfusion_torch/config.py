@@ -1,7 +1,7 @@
 """Configuration for dreamfusion_torch (counterpart of dreamfusion_tpu/config.py).
 
 The port keeps its own copy, limited to the fields the ``-O`` training path
-reads. ``-O`` = bf16 compute + occupancy-grid renderer + view-dependent
+and the staged eval / 360-degree test render read. ``-O`` = bf16 compute + occupancy-grid renderer + view-dependent
 text (reference main.py:75-79); on the GPU "fp16" means bf16 compute with
 f32 parameters, as in the JAX package.
 """
@@ -23,7 +23,7 @@ class Config:
     workspace: str = "workspace"
     seed: int = 0
     test: bool = False
-    eval_interval: int = 10             # eval every N epochs (slice 2)
+    eval_interval: int = 10             # eval every N epochs
     guidance: str = "stable-diffusion"  # 'stable-diffusion' | 'none'
     ckpt: str = "latest"                # latest | scratch | <path>
     device: Optional[str] = None        # None = cuda (raises without a GPU)
@@ -43,6 +43,10 @@ class Config:
     grid_compact: bool = True
     grid_compact_slack: float = 1.25
     grid_decay: float = 0.95
+    max_ray_batch: int = 4096           # rays per staged-eval group
+    # the staged eval's bf16 table view for the corner gathers (the
+    # reference evals under fp16 autocast; parameters stay f32)
+    eval_table_bf16: bool = True
 
     # -- model ---------------------------------------------------------------
     bg_radius: float = 1.4
@@ -52,6 +56,8 @@ class Config:
     # -- render resolution ----------------------------------------------------
     w: int = 64
     h: int = 64
+    W: int = 800                        # eval/test render width
+    H: int = 800                        # eval/test render height
 
     # -- scene ---------------------------------------------------------------
     bound: float = 1.0
@@ -80,6 +86,8 @@ class Config:
 
     # -- bookkeeping ------------------------------------------------------------
     dataset_size: int = 100             # steps per "epoch"
+    test_size: int = 100                # frames in the 360-degree test orbit
+    val_size: int = 5                   # frames of each evaluation
     max_keep_ckpt: int = 2
 
     @property
@@ -129,8 +137,13 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--grid_compact_slack", type=float,
                    default=d.grid_compact_slack)
     p.add_argument("--grid_decay", type=float, default=d.grid_decay)
+    p.add_argument("--max_ray_batch", type=int, default=d.max_ray_batch)
+    p.add_argument("--no_eval_table_bf16", dest="eval_table_bf16",
+                   action="store_false", default=d.eval_table_bf16)
     p.add_argument("--dataset_size", type=int, default=d.dataset_size)
     p.add_argument("--max_keep_ckpt", type=int, default=d.max_keep_ckpt)
+    p.add_argument("--test_size", type=int, default=d.test_size)
+    p.add_argument("--val_size", type=int, default=d.val_size)
     p.add_argument("--bg_radius", type=float, default=d.bg_radius)
     p.add_argument("--density_thresh", type=float, default=d.density_thresh)
     p.add_argument("--fp16", action="store_true")
@@ -138,6 +151,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=d.batch_size)
     p.add_argument("--w", type=int, default=d.w)
     p.add_argument("--h", type=int, default=d.h)
+    p.add_argument("--W", type=int, default=d.W)
+    p.add_argument("--H", type=int, default=d.H)
     p.add_argument("--bound", type=float, default=d.bound)
     p.add_argument("--min_near", type=float, default=d.min_near)
     p.add_argument("--radius_range", type=float, nargs="*",

@@ -1,18 +1,22 @@
-"""dreamfusion_torch CLI: train one text-to-3D asset on the GPU.
+"""dreamfusion_torch CLI: train one text-to-3D asset on the GPU, then render
+its 360-degree orbit.
 
   python -m dreamfusion_torch.main -O --text "a hamburger" --iters 5000
+  python -m dreamfusion_torch.main -O --text "a hamburger" --test
 
 Trains with the occupancy-grid renderer and SDS guidance on randomly
 initialised SD v1.5-sized models (``--sd_weights random-full``, the
-default), then saves a checkpoint under ``<workspace>/checkpoints``. The
-staged eval, the 360-degree test render and mesh export belong to slice 2
-of the port (ROADMAP.md): ``--test`` raises, and a training run does not
-render them.
+default), evaluating every ``eval_interval`` epochs, then renders the
+``--test_size``-frame orbit at ``--H`` x ``--W`` through the staged eval
+into ``<workspace>/results`` (main.py:27-42). ``--test`` renders the orbit
+from the latest checkpoint without training. Mesh export and the GUI are
+not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 from dreamfusion_torch.config import parse_config
+from dreamfusion_torch.guidance import none_guidance
 from dreamfusion_torch.training.trainer import Trainer
 
 
@@ -20,15 +24,17 @@ def main(argv=None) -> Trainer:
     cfg = parse_config(argv)
     print(cfg)
     if cfg.test:
-        raise NotImplementedError(
-            "--test (the 360-degree orbit render) belongs to slice 2 of the "
-            "PyTorch port; see ROADMAP.md")
-    trainer = Trainer("df", cfg, workspace=cfg.workspace,
-                      use_checkpoint=cfg.ckpt)
-    trainer.train(max_steps=cfg.iters)
-    print(f"trained to step {trainer.step}; checkpoint in {trainer.ckpt_dir}")
-    print("not run: Trainer.test() and Trainer.evaluate() (slice 2 of the "
-          "port, ROADMAP.md)")
+        trainer = Trainer("df", cfg, guidance=none_guidance(cfg.device),
+                          workspace=cfg.workspace, use_checkpoint=cfg.ckpt)
+    else:
+        trainer = Trainer("df", cfg, workspace=cfg.workspace,
+                          use_checkpoint=cfg.ckpt)
+        trainer.train(max_steps=cfg.iters)
+        print(f"trained to step {trainer.step}; checkpoint in "
+              f"{trainer.ckpt_dir}")
+    trainer.test()
+    print(f"rendered {cfg.test_size} orbit frames at {cfg.H}x{cfg.W} into "
+          f"{trainer.workspace}/results")
     return trainer
 
 

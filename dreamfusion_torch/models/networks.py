@@ -125,12 +125,15 @@ class NeRFGridNetwork(nn.Module):
         if self.bg_net is not None:
             self.bg_net.reset_parameters(generator)
 
-    def encode(self, x: torch.Tensor) -> torch.Tensor:
-        return self.enc_spec(self.embeddings, x, bound=self.bound)
+    def encode(self, x: torch.Tensor, table_bf16: bool = False) -> torch.Tensor:
+        emb = self.embeddings
+        if table_bf16:
+            emb = emb.to(torch.bfloat16)
+        return self.enc_spec(emb, x, bound=self.bound)
 
-    def common(self, x: torch.Tensor):
+    def common(self, x: torch.Tensor, table_bf16: bool = False):
         """x [N,3] in [-bound,bound] -> (sigma [N], albedo [N,3])."""
-        h = self.sigma_net(self.encode(x))
+        h = self.sigma_net(self.encode(x, table_bf16))
         sigma = trunc_exp(h[..., 0] + gaussian_blob(x))
         albedo = torch.sigmoid(h[..., 1:4])
         return sigma, albedo
@@ -143,19 +146,22 @@ class NeRFGridNetwork(nn.Module):
         """Frequency-encoded MLP on ray directions, sigmoid rgb."""
         return torch.sigmoid(self.bg_net(freq_encode(d, degree=6)))
 
-    def raw_normal(self, x: torch.Tensor, epsilon: float = 1e-2):
+    def raw_normal(self, x: torch.Tensor, epsilon: float = 1e-2,
+                   table_bf16: bool = False):
         """-grad sigma by central differences (network_grid.py:90-105)."""
         grads = []
         for d in range(3):
             e = torch.zeros(1, 3, device=x.device)
             e[0, d] = epsilon
-            s_p, _ = self.common(torch.clamp(x + e, -self.bound, self.bound))
-            s_m, _ = self.common(torch.clamp(x - e, -self.bound, self.bound))
+            s_p, _ = self.common(torch.clamp(x + e, -self.bound, self.bound),
+                                 table_bf16)
+            s_m, _ = self.common(torch.clamp(x - e, -self.bound, self.bound),
+                                 table_bf16)
             grads.append(0.5 * (s_p - s_m) / epsilon)
         return -torch.stack(grads, dim=-1)
 
-    def normal(self, x: torch.Tensor) -> torch.Tensor:
-        n = safe_normalize(self.raw_normal(x))
+    def normal(self, x: torch.Tensor, table_bf16: bool = False) -> torch.Tensor:
+        n = safe_normalize(self.raw_normal(x, table_bf16=table_bf16))
         return torch.where(torch.isnan(n), torch.zeros_like(n), n)
 
 
@@ -167,22 +173,28 @@ class FieldFns(NamedTuple):
     normal: Optional[Callable]
 
 
-def make_field_fns(model: NeRFGridNetwork, bg: bool = True) -> FieldFns:
+def make_field_fns(model: NeRFGridNetwork, bg: bool = True,
+                   table_bf16: bool = False) -> FieldFns:
     """field(x, d, light_d, ratio, shading_code) -> (sigma, color, normal);
-    the albedo code never evaluates normals (network_grid.py:123-127)."""
+    the albedo code never evaluates normals (network_grid.py:123-127).
+    table_bf16: every table gather of these functions reads the bf16 view
+    (the JAX package's model.clone(table_bf16=True))."""
 
     def field(x, d, light_d, ratio, shading_code):
-        sigma, albedo = model.common(x)
+        sigma, albedo = model.common(x, table_bf16)
         if int(shading_code) == SHADING_ALBEDO:
             return sigma, albedo, torch.zeros_like(x)
-        n = model.normal(x)
+        n = model.normal(x, table_bf16)
         return sigma, _shade(albedo, n, light_d, float(ratio),
                              shading_code), n
+
+    def normal(x):
+        return model.normal(x, table_bf16)
 
     background = None
     if bg and model.bg_radius > 0:
         background = model.background
-    return FieldFns(field=field, background=background, normal=model.normal)
+    return FieldFns(field=field, background=background, normal=normal)
 
 
 def build_model(cfg, device: Optional[torch.device] = None,

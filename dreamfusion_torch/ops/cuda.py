@@ -37,6 +37,8 @@ SOURCES = {
     "grid_encoder_bwd": "grid_encoder_bwd.cu",
     "fused_composite": "fused_composite.cu",
     "flash_attention": "flash_attention.cu",
+    "scatter_wide": "scatter_wide.cu",
+    "probe_select": "probe_select.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -48,6 +50,8 @@ launch_counts: Dict[str, int] = {
     "composite_bwd": 0,
     "attention_fwd": 0,
     "attention_bwd": 0,
+    "scatter_add_wide": 0,
+    "probe_select_small": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

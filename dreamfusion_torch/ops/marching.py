@@ -24,11 +24,14 @@ import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from dreamfusion_torch.cameras import safe_normalize
 from dreamfusion_torch.device import resolve_device
+from dreamfusion_torch.ops import probe
 from dreamfusion_torch.ops.composite import CompositeOut, near_far_from_aabb
 from dreamfusion_torch.ops.fused_composite import composite_fused
+from dreamfusion_torch.ops.scatter_wide import scatter_add_wide
 
 SQRT3 = math.sqrt(3.0)
 
@@ -111,47 +114,189 @@ class MarchOut(NamedTuple):
     counts: torch.Tensor  # [N] emitted samples before truncation
 
 
+def _lattice_points(rays_o, rays_d, ts, bound: float):
+    """Per-axis positions of the lattice points ts [N, S], clamped to the
+    box: three [N, S] tensors."""
+    return [torch.clamp(rays_o[:, d:d + 1] + ts * rays_d[:, d:d + 1],
+                        -bound, bound) for d in range(3)]
+
+
+def _flat_cells(x, mip_bound, H: int) -> torch.Tensor:
+    """Flat int32 cell index of per-axis positions x in [-mip_bound,
+    mip_bound] on an H^3 grid."""
+    n = [torch.clamp(0.5 * (x[d] / mip_bound + 1.0) * H, 0.0, H - 1.0)
+         .to(torch.int32) for d in range(3)]
+    return (n[0] * H + n[1]) * H + n[2]
+
+
+def _probe_gather(occ_flat: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
+    """Bool occupancy [T] at int32 indices flat -> bool, flat's shape.
+    Small tables (the staged eval's pooled grid) take probe_select_small,
+    kernel D on the GPU, where the JAX package takes K4
+    (marching.py:350-360)."""
+    if probe.fits(occ_flat.shape[0]):
+        vals = probe.probe_select_small(occ_flat.to(torch.uint8),
+                                        flat.reshape(-1))
+        return (vals != 0).reshape(flat.shape)
+    return occ_flat[flat]
+
+
 def _probe_occupancy(occ, rays_o, rays_d, ts, bound: float) -> torch.Tensor:
     """Occupancy at lattice points ts [N, S] -> bool [N, S]; the cascade
     level follows from the position (mip from dt is 0 on this lattice)."""
     C, H = occ.shape[0], occ.shape[1]
-    x = [torch.clamp(rays_o[:, d:d + 1] + ts * rays_d[:, d:d + 1],
-                     -bound, bound) for d in range(3)]
+    x = _lattice_points(rays_o, rays_d, ts, bound)
     if C == 1:
-        mip_bound = bound
-        level = None
-    else:
-        mx = torch.maximum(x[0].abs(), torch.maximum(x[1].abs(), x[2].abs()))
-        level = torch.clamp(
-            (torch.floor(torch.log2(torch.clamp(mx, min=1e-30))) + 1.0).long(),
-            0, C - 1)
-        mip_bound = torch.clamp(torch.exp2(level.float()), max=bound)
-    n = [torch.clamp(0.5 * (x[d] / mip_bound + 1.0) * H, 0.0, H - 1.0).long()
-         for d in range(3)]
-    flat = (n[0] * H + n[1]) * H + n[2]
-    if level is not None:
-        flat = flat + level * H ** 3
-    return occ.reshape(-1)[flat]
+        return _probe_gather(occ.reshape(-1), _flat_cells(x, bound, H))
+    mx = torch.maximum(x[0].abs(), torch.maximum(x[1].abs(), x[2].abs()))
+    level = torch.clamp(
+        (torch.floor(torch.log2(torch.clamp(mx, min=1e-30))) + 1.0)
+        .to(torch.int32), 0, C - 1)
+    mip_bound = torch.clamp(torch.exp2(level.float()), max=bound)
+    flat = _flat_cells(x, mip_bound, H) + level * H ** 3
+    return _probe_gather(occ.reshape(-1), flat)
 
 
-def _compact(ts, dts, emits, K: int) -> MarchOut:
+def probe_density(density_grid, rays_o, rays_d, ts,
+                  bound: float) -> torch.Tensor:
+    """Nearest-cell density-EMA lookups at points ts [N, S] -> f32 [N, S]
+    (single cascade; the same cells as _probe_occupancy, so the staged
+    eval's live estimate agrees with the occupancy its march used)."""
+    H = density_grid.shape[1]
+    flat = _flat_cells(_lattice_points(rays_o, rays_d, ts, bound), bound, H)
+    return density_grid[0].reshape(-1)[flat].float()
+
+
+def pool_occ(occ: torch.Tensor, factor: int) -> torch.Tensor:
+    """factor^3 max-pool of the occupancy grid, then a 3^3 dilation at the
+    coarse resolution: a cell is set iff any fine voxel within one coarse
+    block of it is occupied, so a ray probe of the result with spacing <=
+    2 coarse blocks never misses a fine emit (marching.py:430-442)."""
+    pooled = F.max_pool3d(occ.float(), factor, factor) > 0
+    return dilate_occ(pooled)
+
+
+def max_pooled_stride(max_steps: int, grid_size: int, factor: int) -> int:
+    """Largest sound probe stride against pool_occ(occ, factor)."""
+    s = int((4.0 * max_steps * factor) / (2.0 * SQRT3 * grid_size))
+    return max(1, min(s, max_steps // 4))
+
+
+def dilate_occ(occ: torch.Tensor) -> torch.Tensor:
+    """3x3x3 max-pool dilation of the occupancy grid, per cascade."""
+    return F.max_pool3d(occ.float(), 3, 1, 1) > 0
+
+
+def max_coarse_stride(max_steps: int, grid_size: int) -> int:
+    """Largest sound probe stride against the dilated fine grid."""
+    s = int((4.0 * max_steps) / (2.0 * SQRT3 * grid_size))
+    return max(1, min(s, 8))
+
+
+def _coarse_hits(occ_coarse, rays_o, rays_d, nears, fars, *, bound: float,
+                 max_steps: int, stride: int):
+    """Probe hits [N, S] at every stride-th lattice point, and their
+    spacing."""
+    S = max_steps // stride
+    spacing = stride * 2.0 * SQRT3 / max_steps
+    ts = nears[:, None] + spacing * torch.arange(
+        S, dtype=torch.float32, device=nears.device)[None, :]
+    alive = ts < (fars[:, None] + spacing)   # pad far so tail probes land
+    hits = _probe_occupancy(occ_coarse, rays_o, rays_d, ts, bound) & alive
+    return hits, spacing
+
+
+@torch.no_grad()
+def coarse_hit_counts(occ_dilated, rays_o, rays_d, nears, fars, *,
+                      bound: float, max_steps: int,
+                      stride: int) -> torch.Tensor:
+    """Conservative per-ray hit counts (marching.py:473-489): 0 proves the
+    full march emits nothing."""
+    hits, _ = _coarse_hits(occ_dilated, rays_o, rays_d, nears, fars,
+                           bound=bound, max_steps=max_steps, stride=stride)
+    return hits.sum(1)
+
+
+@torch.no_grad()
+def coarse_hit_window(occ_coarse, rays_o, rays_d, nears, fars, *,
+                      bound: float, max_steps: int, stride: int):
+    """coarse_hit_counts plus a [t_lo, t_hi] bracket of every possible fine
+    emit (marching.py:492-516); rays without hits get t_lo = t_hi = near.
+    Returns (counts [N], t_lo [N], t_hi [N])."""
+    hits, spacing = _coarse_hits(occ_coarse, rays_o, rays_d, nears, fars,
+                                 bound=bound, max_steps=max_steps,
+                                 stride=stride)
+    counts = hits.sum(1)
+    idx = torch.arange(hits.shape[1], dtype=torch.float32,
+                       device=hits.device)[None, :]
+    first = torch.where(hits, idx, math.inf).amin(1)
+    last = torch.where(hits, idx, -math.inf).amax(1)
+    has = counts > 0
+    t_lo = torch.where(has, nears + (first - 1.0) * spacing, nears)
+    t_lo = torch.maximum(t_lo, nears)
+    t_hi = torch.where(has, nears + (last + 1.0) * spacing, nears)
+    t_hi = torch.minimum(t_hi, fars + spacing)
+    return counts, t_lo, t_hi
+
+
+@torch.no_grad()
+def march_rays_window(occ, rays_o, rays_d, nears, fars, t_lo, *,
+                      bound: float, max_steps: int, S: int, K: int,
+                      density_grid: Optional[torch.Tensor] = None,
+                      occ_thresh=None):
+    """Uniform-lattice march over S lattice points from the first aligned
+    lattice index >= t_lo (eval only, no perturbation; marching.py:519-553).
+    With density_grid and occ_thresh (min(mean_density, density_thresh)) a
+    single-cascade march probes the sigma EMA instead of the bool grid
+    (occupancy is exactly sigma_ema > occ_thresh) and carries the probed
+    sigma through compaction. Returns (MarchOut, sigma_est [N, K] or
+    None).
+
+    The lattice point k0 + j is computed as near + dt * (k0 + j), exactly
+    as the full march computes point k (near + dt * k), so the window's
+    points are bitwise the full march's. The JAX package computes
+    (near + k0 dt) + j dt, which rounds differently; a point that lies on a
+    cell face can then land in the other cell, and a sample appears or
+    vanishes (ROADMAP.md, queue 3)."""
+    dt = 2.0 * SQRT3 / max_steps
+    k0 = torch.floor((t_lo - nears) / dt)
+    ts = nears[:, None] + dt * (k0[:, None] + torch.arange(
+        S, dtype=torch.float32, device=nears.device)[None, :])
+    alive = ts < fars[:, None]
+    dts = torch.full_like(ts, dt)
+    if density_grid is not None and occ.shape[0] == 1:
+        sig = probe_density(density_grid, rays_o, rays_d, ts, bound)
+        return _compact(ts, dts, (sig > occ_thresh) & alive, K, payload=sig)
+    emits = _probe_occupancy(occ, rays_o, rays_d, ts, bound) & alive
+    return _compact(ts, dts, emits, K)[0], None
+
+
+def _compact(ts, dts, emits, K: int,
+             payload: Optional[torch.Tensor] = None):
     """Move the emitted samples of each ray, in order, to its first K
-    slots (the sort on key = t-or-inf of marching.py:580-613)."""
+    slots (the sort on key = t-or-inf of marching.py:580-613); an optional
+    per-sample payload rides along. Returns (MarchOut, payload [N, K] or
+    None)."""
     key = torch.where(emits, ts, torch.full_like(ts, math.inf))
     key_sorted, order = torch.sort(key, dim=1)
     dt_sorted = torch.gather(dts, 1, order)
+    pay_sorted = (torch.gather(payload, 1, order) if payload is not None
+                  else None)
     S = ts.shape[1]
     if S < K:
-        key_sorted = torch.nn.functional.pad(key_sorted, (0, K - S),
-                                             value=math.inf)
-        dt_sorted = torch.nn.functional.pad(dt_sorted, (0, K - S))
+        key_sorted = F.pad(key_sorted, (0, K - S), value=math.inf)
+        dt_sorted = F.pad(dt_sorted, (0, K - S))
+        if pay_sorted is not None:
+            pay_sorted = F.pad(pay_sorted, (0, K - S))
     counts = emits.sum(1)
     k_ar = torch.arange(K, device=ts.device)[None, :]
     valid = k_ar < torch.clamp(counts, max=K)[:, None]
     zero = torch.zeros((), device=ts.device)
+    pay_out = (torch.where(valid, pay_sorted[:, :K], zero)
+               if pay_sorted is not None else None)
     return MarchOut(ts=torch.where(valid, key_sorted[:, :K], zero),
                     dts=torch.where(valid, dt_sorted[:, :K], zero),
-                    valid=valid, counts=counts)
+                    valid=valid, counts=counts), pay_out
 
 
 @torch.no_grad()
@@ -173,7 +318,7 @@ def march_rays(occ, rays_o, rays_d, nears, fars, *, bound: float,
     ts = t0[:, None] + dt * torch.arange(max_steps, dtype=torch.float32,
                                          device=rays_o.device)[None, :]
     emits = _probe_occupancy(occ, rays_o, rays_d, ts, bound) & (ts < fars[:, None])
-    return _compact(ts, torch.full_like(ts, dt), emits, K)
+    return _compact(ts, torch.full_like(ts, dt), emits, K)[0]
 
 
 class CompactMap(NamedTuple):
@@ -242,6 +387,46 @@ def compact_expand(vals_c: torch.Tensor, cmap: CompactMap) -> torch.Tensor:
     return _CompactExpand.apply(vals_c, cmap.pos, cmap.fwd_flat, cmap.valid_m)
 
 
+@torch.no_grad()
+def composite_compact(sigma_c, color_c, t_c, dt_c, cmap: CompactMap, N: int,
+                      T_thresh: float = 0.0):
+    """Alpha-composite directly on the ray-major compact sample buffer
+    (marching.py:716-792; the eval path, forward only). Samples that the
+    compaction dropped have alpha 0 in the dense path, so this is exact,
+    not an approximation.
+
+    Transmittance is a per-ray exclusive prefix of l = log(1 - alpha +
+    1e-15) in the flat [M] buffer, in two passes so the running f32 sum
+    stays near zero: pass 1 takes approximate per-ray totals from a plain
+    cumsum, pass 2 injects minus the previous ray's total at each ray start.
+    The per-ray sums of [w, w*t, w*rgb, live] are one scatter_add_wide
+    (kernel C on the GPU). Returns (rgb [N,3], weights_sum [N], depth_sum
+    [N], live_counts [N])."""
+    tau = sigma_c.float() * dt_c.float()
+    alpha = 1.0 - torch.exp(-tau)
+    l = torch.log(torch.exp(-tau) + 1e-15)
+    zero = l.new_zeros(1)
+    offs, ends = cmap.offs, cmap.offs + cmap.cnt
+    A1 = torch.cat([zero, torch.cumsum(l, 0)])
+    S_approx = A1[ends] - A1[offs]
+    resets = -torch.cat([zero, S_approx[:-1]])
+    z = l.index_add(0, torch.clamp(offs - 1, min=0),
+                    torch.where(offs > 0, resets, torch.zeros_like(resets)))
+    A2 = torch.cat([zero, torch.cumsum(z, 0)])
+    excl = A2[:-1] - A2[offs][cmap.ray_of_m]
+    trans = torch.exp(torch.clamp(excl, max=0.0))
+    w = alpha * trans
+    if T_thresh > 0.0:
+        w = torch.where(trans > T_thresh, w, torch.zeros_like(w))
+    w = torch.where(cmap.valid_m, w, torch.zeros_like(w))
+    live = (cmap.valid_m & (trans > T_thresh)).float()
+    color = color_c.float()
+    upd = torch.stack([w, w * t_c.float(), w * color[:, 0], w * color[:, 1],
+                       w * color[:, 2], live], dim=-1)
+    acc = scatter_add_wide(cmap.ray_of_m.to(torch.int32), upd, N)
+    return acc[:, 2:5], acc[:, 0], acc[:, 1], acc[:, 5]
+
+
 def render_grid(fns, grid_state: GridState, rays_o, rays_d, *,
                 bound: float = 1.0, min_near: float = 0.1,
                 max_steps: int = 512, K: int = 128, bg_radius: float = 1.4, light_d=None,
@@ -284,10 +469,14 @@ def shade_march(fns, march: MarchOut, rays_o, rays_d, nears, fars, *, K: int,
                 T_thresh: float = 1e-4, compute_normal_losses: bool = False,
                 compact_M: Optional[int] = None,
                 generator: Optional[torch.Generator] = None,
-                smooth_n: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-    """Field query + fused compositing over pre-marched samples
-    (marching.py:849-1031, train branch). compact_M < N*K queries the
-    field at M compacted samples instead of all N*K slots."""
+                smooth_n: Optional[torch.Tensor] = None,
+                compact_composite: bool = False) -> Dict[str, torch.Tensor]:
+    """Field query + compositing over pre-marched samples
+    (marching.py:849-1031). compact_M < N*K queries the field at M
+    compacted samples instead of all N*K slots; compact_composite (the
+    staged eval, forward only) then composites the compact buffer directly
+    (composite_compact, kernel C) instead of expanding it for the fused
+    compositor (kernel B)."""
     N = rays_o.shape[0]
     if K < march.ts.shape[1]:
         march = MarchOut(march.ts[:, :K], march.dts[:, :K],
@@ -298,6 +487,7 @@ def shade_march(fns, march: MarchOut, rays_o, rays_d, nears, fars, *, K: int,
     dirs = rays_d[:, None, :].expand(xyzs.shape)
 
     cmap = None
+    live_counts = None
     if compact_M is not None and compact_M < N * K:
         cmap = make_compact_map(march.counts, K, compact_M)
         t_c = march.ts.reshape(-1)[cmap.fwd_flat]
@@ -307,10 +497,20 @@ def shade_march(fns, march: MarchOut, rays_o, rays_d, nears, fars, *, K: int,
         sigma_c, color_c, normal_c = fns.field(xyz_c, d_c, light_d,
                                                ambient_ratio, shading_code)
         sigma_c = torch.where(cmap.valid_m, sigma_c, torch.zeros_like(sigma_c))
-        sigma = compact_expand(sigma_c, cmap) * valid_f
-        color = compact_expand(color_c, cmap)
-        kept = cmap.pos < compact_M
-        dts = march.dts * (march.valid & kept).float()
+        if compact_composite:
+            if compute_normal_losses:
+                raise ValueError("compact_composite is the forward-only eval "
+                                 "path; it computes no normal losses")
+            dt_c = march.dts.reshape(-1)[cmap.fwd_flat]
+            rgb, ws, depth_sum, live_counts = composite_compact(
+                sigma_c, color_c, t_c, dt_c, cmap, N, T_thresh)
+            out = CompositeOut(weights=None, weights_sum=ws, depth=depth_sum,
+                               rgb=rgb)
+        else:
+            sigma = compact_expand(sigma_c, cmap) * valid_f
+            color = compact_expand(color_c, cmap)
+            kept = cmap.pos < compact_M
+            dts = march.dts * (march.valid & kept).float()
     else:
         sigma, color, normal = fns.field(xyzs.reshape(-1, 3),
                                          dirs.reshape(-1, 3), light_d,
@@ -319,17 +519,18 @@ def shade_march(fns, march: MarchOut, rays_o, rays_d, nears, fars, *, K: int,
         color = color.reshape(N, K, 3)
         dts = march.dts * valid_f
 
-    fused = composite_fused(sigma, color, dts, march.ts, T_thresh)
-    out = CompositeOut(weights=None, weights_sum=fused.weights_sum,
-                       depth=fused.depth, rgb=fused.rgb)
-
-    # unmasked transmittance of the detached densities: the orient loss's
-    # weights and the live count (marching.py:966-1018)
-    with torch.no_grad():
-        alphas_sg = 1.0 - torch.exp(-sigma.detach() * dts)
-        trans_sg = torch.cumprod(torch.cat(
-            [torch.ones(N, 1, device=sigma.device), 1.0 - alphas_sg + 1e-15],
-            1), 1)[:, :-1]
+    if live_counts is None:
+        fused = composite_fused(sigma, color, dts, march.ts, T_thresh)
+        out = CompositeOut(weights=None, weights_sum=fused.weights_sum,
+                           depth=fused.depth, rgb=fused.rgb)
+        # unmasked transmittance of the detached densities: the orient
+        # loss's weights and the live count (marching.py:966-1018)
+        with torch.no_grad():
+            alphas_sg = 1.0 - torch.exp(-sigma.detach() * dts)
+            trans_sg = torch.cumprod(torch.cat(
+                [torch.ones(N, 1, device=sigma.device),
+                 1.0 - alphas_sg + 1e-15], 1), 1)[:, :-1]
+            live_counts = (march.valid & (trans_sg > T_thresh)).sum(1).float()
 
     results: Dict[str, torch.Tensor] = {}
     if compute_normal_losses:
@@ -367,7 +568,6 @@ def shade_march(fns, march: MarchOut, rays_o, rays_d, nears, fars, *, K: int,
         fars - nears, min=1e-6)
 
     counts = march.counts.float()
-    live_counts = (march.valid & (trans_sg > T_thresh)).sum(1).float()
     results.update({
         "image": image,
         "depth": depth,

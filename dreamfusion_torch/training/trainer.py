@@ -1,4 +1,4 @@
-"""Training loop, train side (counterpart of
+"""Training loop, staged eval and 360-degree test render (counterpart of
 dreamfusion_tpu/training/trainer.py; reference nerf/utils.py:151-968).
 
 One step: cameras -> shading schedule -> occupancy-grid render (fused
@@ -11,19 +11,31 @@ computes. PyTorch runs eagerly, so no per-bucket program cache is kept.
 Every draw of a step can be injected through ``draws`` (see
 ``make_grads_fn``); absent draws come from the trainer's generators.
 
+Eval and test frames (``Trainer.evaluate`` / ``Trainer.test``) render
+through ``make_staged_grid_eval``: a classify pass over the pooled
+occupancy grid (kernel D), a windowed march of the flagged ray groups with
+a transmittance-live estimate, and a compact shade per group (kernel C),
+pasted into the frame by ray index.
+
 The step's parts run under ``torch.profiler.record_function`` spans
 (step/cameras, step/render, step/guidance, step/backward, step/optimizer,
-grid_refresh); chip_smoke.py's profile phase reads their device time.
-Outside a profiler a span costs a few microseconds of host time.
+grid_refresh), the eval frame's under eval/classify, eval/bg, eval/march,
+eval/shade and eval/finish; chip_smoke.py's profile phase reads their
+device time. Outside a profiler a span costs a few microseconds of host
+time.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import struct
 import time
-from typing import Any, Dict, Optional
+import zlib
+from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -36,9 +48,14 @@ from dreamfusion_torch.models.networks import (SHADING_ALBEDO,
                                                SHADING_TEXTURELESS,
                                                NeRFGridNetwork, build_model,
                                                make_field_fns)
-from dreamfusion_torch.ops.marching import (GridState, init_grid_state,
+from dreamfusion_torch.ops.composite import near_far_from_aabb
+from dreamfusion_torch.ops.marching import (SQRT3, GridState,
+                                            coarse_hit_window,
+                                            init_grid_state,
+                                            march_rays_window,
+                                            max_pooled_stride, pool_occ,
                                             refresh_partial, render_grid,
-                                            update_grid)
+                                            shade_march, update_grid)
 from dreamfusion_torch.training.optimizers import build_optimizer
 
 K_LADDER = (16, 32, 48, 64, 96, 128, 192, 256)
@@ -161,10 +178,214 @@ def make_grads_fn(cfg: Config, model: NeRFGridNetwork, guidance: Guidance,
     return grads_fn
 
 
+# optical-depth budget of the staged eval's live estimate: -ln(1e-4) times
+# the JAX default margin 1.2 (trainer.py:521-536)
+_LIVE_LOGT = 1.2 * 9.2103
+
+
+@contextlib.contextmanager
+def _stage(name: str, timings: Optional[Dict[str, float]],
+           device: torch.device):
+    """A record_function span eval/<name>; with a timings dict the stage
+    also ends in a device sync and adds its wall seconds there."""
+    with record_function(f"eval/{name}"):
+        t0 = time.perf_counter()
+        yield
+        if timings is not None:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
+
+
+def make_staged_grid_eval(cfg: Config, model: NeRFGridNetwork, H: int,
+                          W: int):
+    """The sorted, bucketed staged eval of the grid renderer
+    (trainer.py:221-859, its default scatter-assembled frame): the
+    counterpart of the reference's alive-ray compaction loop
+    (nerf/renderer.py:496-532).
+
+    1. classify: probe the pooled occupancy grid (pool_occ, factor 4, at a
+       sound stride of 16; kernel D on the GPU) along every ray, or with
+       several cascades the fine grid at stride 1; a zero count proves the
+       ray empty. Sort the ray indices by (count, span of
+       the emit window) and take each group's maxima to the host once;
+    2. background for the whole frame;
+    3. march every flagged group (from the densest end down to the first
+       empty group) over the S-ladder length its span needs, with the
+       sigma-EMA live estimate (margin 1.2) cutting samples past T ~ 1e-4;
+       the groups' stats come to the host in one transfer;
+    4. shade each group: single cascade at a global compact budget of the
+       group's mean live count (composite_compact, kernel C), several
+       cascades dense at the live bucket (kernel B); paste by ray index.
+
+    Groups hold cfg.max_ray_batch rays (4,096, the JAX default group).
+    Returns render_frame(rays_o, rays_d, grid_state,
+    shading_code=albedo, ambient_ratio=1.0, bg_color=None, light_d=None,
+    timings=None) -> {"image" [H,W,3], "depth" [H,W], "weights_sum" [H,W]}.
+    A timings dict receives each stage's synced wall seconds."""
+    group = cfg.max_ray_batch
+    fns = make_field_fns(model, table_bf16=cfg.eval_table_bf16)._replace(
+        normal=None)
+    box = [-cfg.bound] * 3 + [cfg.bound] * 3
+    pool_factor = 4 if cfg.cascade == 1 else 1
+    stride = (min(max_pooled_stride(cfg.max_steps, cfg.grid_size,
+                                    pool_factor), 16)
+              if pool_factor > 1 else 1)
+    dt_lattice = 2.0 * SQRT3 / cfg.max_steps
+    S_ladder = sorted({max(cfg.max_steps // 8, 1), cfg.max_steps // 4,
+                       (3 * cfg.max_steps) // 8, cfg.max_steps // 2,
+                       (5 * cfg.max_steps) // 8, (3 * cfg.max_steps) // 4,
+                       cfg.max_steps})
+
+    def classify(occ, o, d, aabb):
+        """Coarse hit counts and emit windows, the sort by (count, span),
+        and each group's maxima -> (perm, t_lo, gstats [groups, 2] host)."""
+        grid = pool_occ(occ, pool_factor) if pool_factor > 1 else occ
+        nears, fars = near_far_from_aabb(o, d, aabb, cfg.min_near)
+        counts, t_lo, t_hi = coarse_hit_window(
+            grid, o, d, nears, fars, bound=cfg.bound,
+            max_steps=cfg.max_steps, stride=stride)
+        span = torch.ceil((t_hi - t_lo) / dt_lattice) + 2.0
+        key = counts.float() * 4096.0 + torch.clamp(span, max=4095.0)
+        perm = torch.sort(key, stable=True).indices
+        gmax = counts.float()[perm].reshape(-1, group).amax(1)
+        gspan = span[perm].reshape(-1, group).amax(1)
+        return perm, t_lo, torch.stack([gmax, gspan], 1).cpu()
+
+    def march_group(gs: GridState, o, d, t_lo, S: int, aabb):
+        """Windowed march of one group + (live bucket, count bucket, live
+        total); the total is -1 where the live estimate is not built
+        (cascade > 1)."""
+        nears, fars = near_far_from_aabb(o, d, aabb, cfg.min_near)
+        thresh = torch.clamp(gs.mean_density, max=cfg.density_thresh)
+        m, sig_est = march_rays_window(
+            gs.occ, o, d, nears, fars, t_lo, bound=cfg.bound,
+            max_steps=cfg.max_steps, S=S, K=cfg.grid_K,
+            density_grid=gs.density_grid, occ_thresh=thresh)
+        gcount = torch.clamp(m.counts, max=cfg.grid_K).max().float()
+        if sig_est is None:
+            glive, ltot = gcount, torch.full_like(gcount, -1.0)
+        else:
+            depth = torch.cumsum(torch.clamp(sig_est, min=0.0) * m.dts
+                                 * m.valid, 1)
+            depth_ex = torch.cat([torch.zeros_like(depth[:, :1]),
+                                  depth[:, :-1]], 1)
+            # a prefix of valid: the estimated optical depth is monotone
+            live = m.valid & (depth_ex < _LIVE_LOGT)
+            m = m._replace(valid=live)
+            live_counts = live.sum(1)
+            glive, ltot = live_counts.max().float(), live_counts.sum().float()
+        m = m._replace(counts=m.valid.sum(1))
+        return m, nears, fars, torch.stack([glive, gcount, ltot])
+
+    @torch.no_grad()
+    def render_frame(rays_o, rays_d, grid_state: GridState,
+                     shading_code: int = SHADING_ALBEDO,
+                     ambient_ratio: float = 1.0, bg_color=None, light_d=None,
+                     timings: Optional[Dict[str, float]] = None):
+        dev = rays_o.device
+        N = H * W
+        Np = N + (-N) % group
+        if light_d is None:
+            light_d = cameras.safe_normalize(rays_o[0])
+        aabb = torch.tensor(box, dtype=torch.float32, device=dev)
+        with _stage("classify", timings, dev):
+            o = torch.cat([rays_o, rays_o.new_zeros(Np - N, 3)])
+            d = torch.cat([rays_d, rays_d.new_ones(Np - N, 3) / 3 ** 0.5])
+            perm, t_lo, gstats = classify(grid_state.occ, o, d, aabb)
+        with _stage("bg", timings, dev):
+            if cfg.bg_radius > 0:
+                image = model.background(d)
+            elif bg_color is not None:
+                image = torch.as_tensor(bg_color, dtype=torch.float32,
+                                        device=dev).expand(Np, 3).clone()
+            else:
+                image = torch.ones(Np, 3, device=dev)
+            depth = torch.zeros(Np, device=dev)
+            ws = torch.zeros(Np, device=dev)
+        marched = []
+        with _stage("march", timings, dev):
+            for g in reversed(range(gstats.shape[0])):
+                if gstats[g, 0] == 0.0:
+                    break                      # sorted: the rest is empty
+                span = float(gstats[g, 1])
+                S = next((s for s in S_ladder if s >= span), S_ladder[-1])
+                ridx = perm[g * group:(g + 1) * group]
+                o_g, d_g = o[ridx], d[ridx]
+                m, nears, fars, st = march_group(grid_state, o_g, d_g,
+                                                 t_lo[ridx], S, aabb)
+                marched.append((ridx, o_g, d_g, m, nears, fars, st))
+            stats = (torch.stack([x[-1] for x in marched]).cpu().tolist()
+                     if marched else [])
+        with _stage("shade", timings, dev):
+            bg = (None if bg_color is None else torch.as_tensor(
+                bg_color, dtype=torch.float32, device=dev).expand(group, 3))
+            for (ridx, o_g, d_g, m, nears, fars, _), (glive, gcount, ltot) \
+                    in zip(marched, stats):
+                if gcount == 0.0:
+                    continue                   # flagged, but truly empty
+                kw = dict(bound=cfg.bound, light_d=light_d,
+                          ambient_ratio=ambient_ratio,
+                          shading_code=shading_code,
+                          bg_radius=cfg.bg_radius, bg_color=bg)
+                if ltot >= 0.0:
+                    mb = _pick_K_bucket(max(ltot / group, 1.0)
+                                        * cfg.grid_compact_slack, cfg.grid_K)
+                    out = shade_march(fns, m, o_g, d_g, nears, fars,
+                                      K=cfg.grid_K, compact_M=mb * group,
+                                      compact_composite=True, **kw)
+                else:
+                    Kb = _pick_K_bucket(max(glive, 1.0), cfg.grid_K)
+                    out = shade_march(fns, m, o_g, d_g, nears, fars, K=Kb,
+                                      **kw)
+                image[ridx] = out["image"]
+                depth[ridx] = out["depth"]
+                ws[ridx] = out["weights_sum"]
+        with _stage("finish", timings, dev):
+            frame = {"image": image[:N].reshape(H, W, 3),
+                     "depth": depth[:N].reshape(H, W),
+                     "weights_sum": ws[:N].reshape(H, W)}
+        return frame
+
+    return render_frame
+
+
+def make_eval_render(cfg: Config, model: NeRFGridNetwork, H: int, W: int):
+    """Full-frame eval renderer: white background unless the model has a
+    background net, albedo shading, no perturbation (trainer.py:862-934).
+    The grid renderer takes the staged eval (the port has no device mesh);
+    the stratified renderer is not ported yet."""
+    if not cfg.grid_ray:
+        raise NotImplementedError(
+            "only the grid renderer's staged eval is ported; the stratified "
+            "renderer and the ray-sharded eval are queued (ROADMAP.md, "
+            "queue 1 items 12-13)")
+    return make_staged_grid_eval(cfg, model, H, W)
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """uint8 [H, W] (grey) or [H, W, 3] (RGB) -> an 8-bit PNG file, with
+    zlib and struct only."""
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    h, w = img.shape[:2]
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)],
+                         axis=1).tobytes()          # filter byte 0 per row
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    header = struct.pack(">IIBBBBB", w, h, 8, 2 if img.ndim == 3 else 0,
+                         0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+                + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
 class Trainer:
-    """Train-side experiment driver: workspace, occupancy grid, adaptive
-    budgets, checkpoints. ``evaluate`` and ``test`` belong to the next slice
-    of the port and raise."""
+    """Experiment driver: workspace, occupancy grid, adaptive budgets,
+    checkpoints, eval dumps and the 360-degree test render (API of the
+    reference Trainer, nerf/utils.py:151-968)."""
 
     def __init__(self, name: str, cfg: Config,
                  model: Optional[NeRFGridNetwork] = None,
@@ -197,6 +418,8 @@ class Trainer:
         self._cur_compact_M: Optional[int] = None
         self._mean_count_ema: Optional[float] = None
         self.loss_history = []
+        self._eval_render = None
+        self.stats: Dict[str, Any] = {"valid_loss": [], "best_result": None}
         use_ckpt = use_checkpoint if use_checkpoint is not None else cfg.ckpt
         if use_ckpt != "scratch":
             self.load_checkpoint(use_ckpt)
@@ -310,23 +533,100 @@ class Trainer:
                 self.log(rec)
             if self.step % (cfg.eval_interval * cfg.dataset_size) == 0:
                 self.evaluate(step=self.step)
+                self.save_checkpoint()
         if checkpoint_at_end:
             self.save_checkpoint()
 
-    def evaluate(self, step: int = 0):
-        raise NotImplementedError(
-            "Trainer.evaluate (the staged 800^2 eval) belongs to slice 2 of "
-            "the port (ROADMAP.md); raise --eval_interval to train past it")
+    # -- evaluation / test (trainer.py:1216-1301) ---------------------------------
 
-    def test(self):
-        raise NotImplementedError(
-            "Trainer.test (the 360-degree orbit render) belongs to slice 2 of "
-            "the port (ROADMAP.md)")
+    def _get_eval_render(self, H: int, W: int):
+        if self._eval_render is None or self._eval_render[0] != (H, W):
+            self._eval_render = ((H, W), make_eval_render(self.cfg,
+                                                          self.model, H, W))
+        return self._eval_render[1]
+
+    def _render_orbit_frame(self, i: int, size: int, H: int, W: int,
+                            timings: Optional[Dict[str, float]] = None):
+        """Frame i of a size-frame orbit at H x W through the staged eval."""
+        batch = cameras.sample_test_batch(i, size, self.cfg, H=H, W=W,
+                                          device=self.device)
+        return self._get_eval_render(H, W)(
+            batch["rays_o"][0], batch["rays_d"][0], self.grid_state,
+            timings=timings)
+
+    def _save_frame(self, out, path_rgb: str,
+                    path_depth: Optional[str] = None) -> np.ndarray:
+        """PNGs of the frame's image and, optionally, its depth scaled to
+        [0, 255]; returns the uint8 image."""
+        rgb = (out["image"].clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
+        write_png(path_rgb, rgb)
+        if path_depth:
+            d = out["depth"].float().cpu().numpy()
+            d = 255 * (d - d.min()) / max(d.max() - d.min(), 1e-6)
+            write_png(path_depth, d.astype(np.uint8))
+        return rgb
+
+    def evaluate(self, step: int = 0, size: Optional[int] = None) -> float:
+        """Validation frames + eval loss + best tracking (nerf/utils.py:
+        757-845). The eval loss is lambda_entropy x the binary entropy of
+        weights_sum (nerf/utils.py:425-431); a new best saves the best
+        checkpoint."""
+        cfg = self.cfg
+        size = size or cfg.val_size
+        vdir = os.path.join(self.workspace, "validation")
+        os.makedirs(vdir, exist_ok=True)
+        total = 0.0
+        for i in range(size):
+            out = self._render_orbit_frame(i, size, cfg.H, cfg.W)
+            a = torch.clamp(out["weights_sum"], 1e-5, 1 - 1e-5)
+            ent = (-a * torch.log2(a) - (1 - a) * torch.log2(1 - a)).mean()
+            total += cfg.lambda_entropy * float(ent)
+            stem = os.path.join(vdir, f"{self.name}_{step:06d}_{i:04d}")
+            self._save_frame(out, f"{stem}_rgb.png", f"{stem}_depth.png")
+        avg = total / max(size, 1)
+        self.stats["valid_loss"].append(avg)
+        best = self.stats["best_result"]
+        if best is None or avg < best:
+            self.log({"step": step, "new_best": avg, "prev_best": best})
+            self.stats["best_result"] = avg
+            self.save_checkpoint(best=True)
+        return avg
+
+    def test(self, size: Optional[int] = None,
+             write_video: bool = True) -> List[np.ndarray]:
+        """360-degree orbit render (nerf/utils.py:507-555): PNG frames, and
+        an mp4 (or, failing that, a GIF) when imageio can be imported."""
+        size = size or self.cfg.test_size
+        tdir = os.path.join(self.workspace, "results")
+        os.makedirs(tdir, exist_ok=True)
+        frames = []
+        for i in range(size):
+            out = self._render_orbit_frame(i, size, self.cfg.H, self.cfg.W)
+            frames.append(self._save_frame(
+                out, os.path.join(tdir, f"{self.name}_{i:04d}_rgb.png")))
+        if write_video and frames:
+            try:
+                import imageio
+            except ImportError:
+                print("test: video skipped (imageio is not installed); the "
+                      f"frames are PNGs in {tdir}")
+                self.log({"video": "skipped: imageio is not installed"})
+                return frames
+            try:
+                imageio.mimwrite(os.path.join(tdir, f"{self.name}_rgb.mp4"),
+                                 frames, fps=25)
+            except Exception:
+                imageio.mimwrite(os.path.join(tdir, f"{self.name}_rgb.gif"),
+                                 frames, fps=25, loop=0)
+        return frames
 
     # -- checkpoints ------------------------------------------------------------------
 
-    def save_checkpoint(self) -> str:
-        path = os.path.join(self.ckpt_dir, f"step_{self.step:08d}.pt")
+    def save_checkpoint(self, best: bool = False) -> str:
+        """Rotating step checkpoints; best=True writes the separate "best"
+        snapshot, which rotation leaves alone (nerf/utils.py:847-968)."""
+        name = "best.pt" if best else f"step_{self.step:08d}.pt"
+        path = os.path.join(self.ckpt_dir, name)
         torch.save({
             "step": self.step,
             "model": self.model.state_dict(),
@@ -338,6 +638,10 @@ class Trainer:
             "gen": self.gen.get_state(),
             "host_gen": self.host_gen.get_state(),
         }, path)
+        with open(os.path.join(self.ckpt_dir, "stats.json"), "w") as f:
+            json.dump(self.stats, f)
+        if best:
+            return path
         ckpts = sorted(d for d in os.listdir(self.ckpt_dir)
                        if d.startswith("step_"))
         for old in ckpts[: -self.cfg.max_keep_ckpt]:
@@ -345,7 +649,12 @@ class Trainer:
         return path
 
     def load_checkpoint(self, which: str = "latest") -> bool:
-        if which == "latest":
+        """which: latest, best (the best snapshot, else the latest) or a
+        path."""
+        best = os.path.join(self.ckpt_dir, "best.pt")
+        if which == "best" and os.path.exists(best):
+            path = best
+        elif which in ("latest", "best"):
             ckpts = sorted(d for d in os.listdir(self.ckpt_dir)
                            if d.startswith("step_"))
             if not ckpts:
@@ -355,6 +664,10 @@ class Trainer:
             path = which
             if not os.path.exists(path):
                 return False
+        stats = os.path.join(self.ckpt_dir, "stats.json")
+        if os.path.exists(stats):
+            with open(stats) as f:
+                self.stats = json.load(f)
         ck = torch.load(path, map_location=self.device, weights_only=False)
         self.model.load_state_dict(ck["model"])
         self.opt.load_state_dict(ck["optimizer"])

@@ -11,14 +11,20 @@ module names, so the conversion is mechanical:
 - ``bias`` and the grid table ``embeddings`` unchanged.
 It covers the NeRF (tables, MLPs, background net) and the SD UNet and VAE.
 VAE decoder parameters are dropped: the port's VAE is encoder-only.
+
+``from_jax_grid_state(state)`` carries the occupancy-grid state across, so
+that both packages render a frame from the same grid.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+from dreamfusion_torch.device import resolve_device
+from dreamfusion_torch.ops.marching import GridState
 
 _DROPPED_PREFIXES = ("decoder.", "post_quant_conv.")
 
@@ -60,3 +66,18 @@ def from_jax_params(np_tree: Mapping) -> Dict[str, torch.Tensor]:
         key, val = _convert(name, arr)
         out[key] = torch.from_numpy(np.array(val, np.float32, order="C"))
     return out
+
+
+def from_jax_grid_state(state: Any,
+                        device: Optional[torch.device] = None) -> GridState:
+    """A JAX ``GridState`` with numpy-convertible leaves density_grid
+    [C,H,H,H] f32, occ [C,H,H,H] bool and mean_density [] -> the port's
+    GridState on `device` (default: the GPU, as the port's builders)."""
+    leaves = state._asdict()
+    dev = resolve_device(device)
+    return GridState(
+        density_grid=torch.from_numpy(np.array(leaves["density_grid"],
+                                               np.float32)).to(dev),
+        occ=torch.from_numpy(np.array(leaves["occ"], bool)).to(dev),
+        mean_density=torch.tensor(float(np.asarray(leaves["mean_density"])),
+                                  dtype=torch.float32, device=dev))

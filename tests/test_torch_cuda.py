@@ -97,3 +97,51 @@ def test_flash_attention_kernels_match_plain(dev, B, N, H, D):
     assert (out.float() - ref).abs().max() <= 1e-2 * ref.abs().max()
     for a, b in zip(grads, refs):
         assert (a.float() - b).abs().max() <= 2e-2 * b.abs().max()
+
+
+@pytest.mark.parametrize("T,J", [(32768, 20_001), (65536, 4096 * 32),
+                                 (128, 3)])
+def test_probe_select_kernel_matches_take(dev, T, J):
+    """Kernel D vs the element gather, exact: the pooled 32^3 grid, the
+    largest table (dynamic shared memory above 48 KB), a tail of J % 4."""
+    from dreamfusion_torch.ops import cuda as kcuda
+    from dreamfusion_torch.ops import probe
+
+    g = torch.Generator(device=dev).manual_seed(T)
+    tab = torch.randint(0, 256, (T,), generator=g, device=dev,
+                        dtype=torch.int32).to(torch.uint8)
+    idx = torch.randint(0, T, (J,), generator=g, device=dev,
+                        dtype=torch.int32)
+    n0 = kcuda.launch_counts["probe_select_small"]
+    got = probe.probe_select_small(tab, idx)
+    assert kcuda.launch_counts["probe_select_small"] == n0 + 1
+    # an index view that is not 16-byte aligned
+    got_view = probe.probe_select_small_cuda(tab, idx[1:])
+    torch.cuda.synchronize()
+    assert torch.equal(got, probe.probe_select_small_plain(tab, idx))
+    assert torch.equal(got_view, got[1:])
+
+
+def test_scatter_add_wide_kernel_matches_index_add(dev):
+    """Kernel C vs index_add_: ray-major runs of every length (0 to 300
+    samples a ray), an invalid tail of id 0 with zero updates, then random
+    ids. Atomics and the warp tree sum in another order: 1e-5 of the
+    largest entry."""
+    from dreamfusion_torch.ops import cuda as kcuda
+    from dreamfusion_torch.ops import scatter_wide as sw
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    T = 4096
+    lens = torch.randint(0, 300, (T,), generator=g, device=dev)
+    runs = torch.repeat_interleave(torch.arange(T, device=dev), lens)
+    tail = torch.zeros(50_000, dtype=torch.long, device=dev)
+    rand = torch.randint(0, T, (10_000,), generator=g, device=dev)
+    idx = torch.cat([runs, tail, rand]).to(torch.int32)
+    upd = torch.rand(idx.shape[0], sw.CHANNELS, generator=g, device=dev)
+    upd[runs.shape[0]:runs.shape[0] + tail.shape[0]] = 0.0
+    n0 = kcuda.launch_counts["scatter_add_wide"]
+    got = sw.scatter_add_wide(idx, upd, T)
+    assert kcuda.launch_counts["scatter_add_wide"] == n0 + 1
+    ref = sw.scatter_add_wide_plain(idx, upd, T)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()

@@ -11,6 +11,7 @@
 import ast
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -66,7 +67,8 @@ def test_entry_points_raise_without_gpu(tmp_path):
 
 @pytest.mark.parametrize("builder", [
     "build_model", "build_sd_guidance", "none_guidance", "sample_train_batch",
-    "init_grid_state", "make_schedule"])
+    "init_grid_state", "make_schedule", "sample_test_batch", "circle_poses",
+    "from_jax_grid_state"])
 def test_public_builders_default_to_the_gpu(builder):
     """Without a device argument the builders put their tensors on the GPU,
     so on a GPU-less host they raise rather than build on the CPU."""
@@ -78,9 +80,12 @@ def test_public_builders_default_to_the_gpu(builder):
     from dreamfusion_torch.guidance.sd.scheduler import make_schedule
     from dreamfusion_torch.guidance.sd.sds import build_sd_guidance
     from dreamfusion_torch.models.networks import build_model
-    from dreamfusion_torch.ops.marching import init_grid_state
+    from dreamfusion_torch.ops.marching import GridState, init_grid_state
+    from dreamfusion_torch.weights import from_jax_grid_state
 
     cfg = Config(text="x", h=8, w=8)
+    grid = GridState(density_grid=np.zeros((1, 8, 8, 8), np.float32),
+                     occ=np.zeros((1, 8, 8, 8), bool), mean_density=0.0)
     calls = {
         "build_model": lambda: build_model(cfg),
         "build_sd_guidance": lambda: build_sd_guidance("random-nano"),
@@ -88,31 +93,47 @@ def test_public_builders_default_to_the_gpu(builder):
         "sample_train_batch": lambda: cameras.sample_train_batch(cfg),
         "init_grid_state": lambda: init_grid_state(1, 8),
         "make_schedule": lambda: make_schedule(),
+        "sample_test_batch": lambda: cameras.sample_test_batch(0, 4, cfg),
+        "circle_poses": lambda: cameras.circle_poses(30.0),
+        "from_jax_grid_state": lambda: from_jax_grid_state(grid),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[builder]()
 
 
 def test_main_trains_on_cpu_when_asked_and_test_raises(tmp_path):
-    """`--device cpu` trains (tiny, no guidance) and saves a checkpoint;
-    --test names the slice it belongs to."""
+    """`--device cpu` trains (tiny, no guidance), saves a checkpoint and
+    renders the test orbit; --test renders the orbit again from the
+    checkpoint without training."""
     from dreamfusion_torch.main import main
 
     ws = tmp_path / "ws"
-    tr = main(["-O", "--text", "a cube", "--guidance", "none", "--iters", "3",
-               "--h", "8", "--w", "8", "--grid_size", "8", "--max_steps",
-               "32", "--device", "cpu", "--workspace", str(ws)])
+    small = ["--h", "8", "--w", "8", "--grid_size", "8", "--max_steps", "32",
+             "--H", "12", "--W", "12", "--test_size", "2", "--device", "cpu",
+             "--workspace", str(ws)]
+    tr = main(["-O", "--text", "a cube", "--guidance", "none", "--iters",
+               "3", *small])
     assert tr.step == 3
     assert any(p.name.startswith("step_") for p in (ws / "checkpoints").iterdir())
     assert all(torch.isfinite(x) for x in tr.loss_history)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        main(["-O", "--text", "a cube", "--test", "--device", "cpu",
-              "--workspace", str(ws)])
+    pngs = sorted(p.name for p in (ws / "results").iterdir()
+                  if p.suffix == ".png")
+    assert pngs == ["df_0000_rgb.png", "df_0001_rgb.png"]
+    for p in (ws / "results").iterdir():
+        p.unlink()
+    tr2 = main(["-O", "--text", "a cube", "--test", *small])
+    assert tr2.step == 3
+    for a, b in zip(tr.model.state_dict().values(),
+                    tr2.model.state_dict().values()):
+        assert torch.equal(a, b)
+    assert (ws / "results" / "df_0001_rgb.png").exists()
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     from dreamfusion_torch.ops import flash_attention as fa
     from dreamfusion_torch.ops import fused_composite as fc
+    from dreamfusion_torch.ops import probe
+    from dreamfusion_torch.ops import scatter_wide as sw
     from dreamfusion_torch.ops.grid_encoder import (GridEncoderSpec,
                                                     _level_consts,
                                                     grid_encoder_bwd_cuda)
@@ -129,20 +150,35 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     q = torch.zeros(1, 64, 1, 8, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
         fa.attention_fwd_cuda(q, q, q, 0.5)
+    with pytest.raises(ValueError, match="CUDA"):
+        probe.probe_select_small_cuda(torch.zeros(128, dtype=torch.uint8),
+                                      torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        sw.scatter_add_wide_cuda(torch.zeros(4, dtype=torch.int32),
+                                 torch.zeros(4, 6), 8)
 
 
 def test_checkpoint_roundtrip_and_eval_raises(tmp_path):
+    """train() evaluates at the eval interval (validation PNGs, the best
+    checkpoint, a step checkpoint); a new Trainer resumes the latest
+    checkpoint, and "best" loads the best snapshot."""
     from dreamfusion_torch.config import Config
     from dreamfusion_torch.training.trainer import Trainer
 
     cfg = Config(text="a cube", guidance="none", grid_ray=True, dir_text=True,
                  h=8, w=8, grid_size=8, max_steps=32, iters=4,
-                 update_extra_interval=2, eval_interval=1, dataset_size=4,
-                 workspace=str(tmp_path), device="cpu")
+                 update_extra_interval=2, eval_interval=1, dataset_size=2,
+                 H=8, W=8, val_size=1, workspace=str(tmp_path), device="cpu")
     tr = Trainer("t", cfg, use_checkpoint="scratch")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tr.train(max_steps=4, log_interval=1)
+    tr.train(max_steps=4, log_interval=1, checkpoint_at_end=False)
     assert tr.step == 4
+    assert len(tr.stats["valid_loss"]) == 2
+    assert (tmp_path / "validation" / "t_000004_0000_rgb.png").exists()
+    ckpts = sorted(p.name for p in (tmp_path / "checkpoints").iterdir())
+    assert ckpts == ["best.pt", "stats.json", "step_00000002.pt",
+                     "step_00000004.pt"]
+    best = Trainer("t", cfg, use_checkpoint="best")
+    assert best.step in (2, 4) and best.stats == tr.stats
     tr.save_checkpoint()
     tr2 = Trainer("t", cfg, use_checkpoint="latest")
     assert tr2.step == 4
