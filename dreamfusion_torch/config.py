@@ -1,7 +1,8 @@
 """Configuration for dreamfusion_torch (counterpart of dreamfusion_tpu/config.py).
 
 The port keeps its own copy, limited to the fields the ``-O`` training path
-and the staged eval / 360-degree test render read. ``-O`` = bf16 compute + occupancy-grid renderer + view-dependent
+(grid backbone, or the editing path ``--backbone dvgo``) and the staged
+eval / 360-degree test render read. ``-O`` = bf16 compute + occupancy-grid renderer + view-dependent
 text (reference main.py:75-79); on the GPU "fp16" means bf16 compute with
 f32 parameters, as in the JAX package.
 """
@@ -49,9 +50,13 @@ class Config:
     eval_table_bf16: bool = True
 
     # -- model ---------------------------------------------------------------
+    backbone: str = "grid"              # 'grid' | 'dvgo'
     bg_radius: float = 1.4
     density_thresh: float = 10.0
     fp16: bool = True                   # bf16 compute, f32 params
+    # editing mode: path of a pretrained DVGO checkpoint (backbone "dvgo");
+    # its geometry is frozen and only the colour MLP trains
+    pretrained_dvgo: Optional[str] = None
 
     # -- render resolution ----------------------------------------------------
     w: int = 64
@@ -144,6 +149,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--max_keep_ckpt", type=int, default=d.max_keep_ckpt)
     p.add_argument("--test_size", type=int, default=d.test_size)
     p.add_argument("--val_size", type=int, default=d.val_size)
+    p.add_argument("--backbone", type=str, default=d.backbone)
+    p.add_argument("--pretrained_dvgo", type=str, default=None)
     p.add_argument("--bg_radius", type=float, default=d.bg_radius)
     p.add_argument("--density_thresh", type=float, default=d.density_thresh)
     p.add_argument("--fp16", action="store_true")

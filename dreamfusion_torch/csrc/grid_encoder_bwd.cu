@@ -1,6 +1,11 @@
-// Grid-encoder backward scatter: the table gradient of the tiled
-// multiresolution grid encoder, all levels in one launch.
+// Grid-encoder backward scatters: the table gradient of the
+// multiresolution grid encoder, all levels in one launch. Two entries:
+// grid_encoder_bwd (kernel A, encoders whose levels are all affine: the
+// tiled grid) and grid_encoder_bwd_rows (kernel E, encoders with a hashed
+// level; described above its kernel below).
 //
+// Kernel A
+// --------
 // Replaces the TPU kernels dreamfusion_tpu/ops/pallas_scatter.py::
 // matmul_scatter_add_oct_binned (bodies _scatter_kernel_oct_binned_t /
 // _scatter_kernel_oct_binned) and ::matmul_scatter_add_oct (bodies
@@ -70,7 +75,79 @@ __global__ void grid_encoder_bwd_kernel(const int32_t* __restrict__ base,
   }
 }
 
+// Kernel E
+// --------
+// Replaces the TPU kernel dreamfusion_tpu/ops/pallas_scatter.py::
+// matmul_scatter_add (body _scatter_kernel), called once per level from
+// dreamfusion_tpu/ops/grid_encoder.py::_make_encode_levels._encode_levels_bwd
+// for every level of an encoder that has a hashed level.
+//
+// Contract (the JAX VJP's residuals; a hashed corner is not an offset from
+// corner 0, so the 8 rows are given, not derived):
+//   rows [L, 8, B] int32  global table rows of the 8 corners (level
+//                         offsets included), each in [0, T)
+//   w    [L, 8, B] f32    trilinear corner weights
+//   cot  [B, L, 2] f32    cotangent of the encoder output
+//   d_emb [T, 2] f32      zero-initialised by the caller; receives
+//     d_emb[rows[l, c, j], k] += w[l, c, j] * cot[j, l, k]
+//
+// What bounds it on Hopper: bytes and atomics. Each (sample, level) reads
+// 32 + 32 + 8 bytes and makes 8 float2 atomicAdds. At the default hash spec
+// (16 levels, 2^19 rows a level) the table is 57 MB, more than the 50 MB L2
+// as a whole; threads walk level by level, so the live working set is one
+// or two levels (4 MB each) and the atomics resolve in L2, but the rows of
+// the hashed levels are spread at random, so the atomics of a warp share
+// no sector. The TPU kernel splits each index into radix digits,
+// builds one-hot matrices and multiplies them on the MXU (updates rounded
+// to bf16) because the TPU has no scatter hardware; none of that is kept:
+// the card has L2 atomics, and the sum stays in f32. One thread per
+// (sample, level), consecutive threads on consecutive samples of one level,
+// so the row and weight reads coalesce. Samples whose cotangent is zero
+// (masked or out-of-bounds) make no atomics. A row outside [0, T) is
+// skipped rather than written. Computing the hash in the kernel from
+// corner 0's integer coordinates would save the reads of `rows`; that is
+// later work.
+__global__ void grid_encoder_bwd_rows_kernel(const int32_t* __restrict__ rows,
+                                             const float* __restrict__ w,
+                                             const float* __restrict__ cot,
+                                             float* __restrict__ d_emb,
+                                             int L, int B, int T) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= static_cast<int64_t>(L) * B) return;
+  const int l = static_cast<int>(t / B);
+  const int64_t j = t - static_cast<int64_t>(l) * B;
+
+  const float c0 = cot[(j * L + l) * 2];
+  const float c1 = cot[(j * L + l) * 2 + 1];
+  if (c0 == 0.0f && c1 == 0.0f) return;
+
+  const int64_t at = static_cast<int64_t>(l) * 8 * B + j;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int32_t row = rows[at + static_cast<int64_t>(c) * B];
+    const float wc = w[at + static_cast<int64_t>(c) * B];
+    if (static_cast<uint32_t>(row) >= static_cast<uint32_t>(T)) continue;
+    // one 8-byte vector atomic per row (sm_90): each float adds atomically
+    atomicAdd(reinterpret_cast<float2*>(d_emb) + row,
+              make_float2(wc * c0, wc * c1));
+  }
+}
+
 }  // namespace
+
+extern "C" int grid_encoder_bwd_rows(const void* rows, const void* w,
+                                     const void* cot, void* d_emb, int L,
+                                     int B, int T, void* stream) {
+  const int64_t n = static_cast<int64_t>(L) * B;
+  if (n == 0) return 0;
+  const int threads = 256;
+  const int64_t blocks = (n + threads - 1) / threads;
+  grid_encoder_bwd_rows_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(rows), static_cast<const float*>(w),
+      static_cast<const float*>(cot), static_cast<float*>(d_emb), L, B, T);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int grid_encoder_bwd(const void* base, const void* w,
                                 const void* cot, const void* table,

@@ -3,13 +3,19 @@ its 360-degree orbit.
 
   python -m dreamfusion_torch.main -O --text "a hamburger" --iters 5000
   python -m dreamfusion_torch.main -O --text "a hamburger" --test
+  python -m dreamfusion_torch.main -O --backbone dvgo \
+      --pretrained_dvgo scene.dvgo --bg_radius 0 --text "a golden ficus"
 
 Trains with the occupancy-grid renderer and SDS guidance on randomly
 initialised SD v1.5-sized models (``--sd_weights random-full``, the
 default), evaluating every ``eval_interval`` epochs, then renders the
 ``--test_size``-frame orbit at ``--H`` x ``--W`` through the staged eval
 into ``<workspace>/results`` (main.py:27-42). ``--test`` renders the orbit
-from the latest checkpoint without training. Mesh export and the GUI are
+from the latest checkpoint without training. ``--backbone dvgo`` edits one
+pretrained DVGO scene: its density and feature grids stay frozen and only
+its colour MLP (and the background net, if any) trains; give
+``--pretrained_dvgo`` with ``--test`` too, since the file sizes the model.
+Mesh export and the GUI are
 not ported yet (ROADMAP.md).
 """
 

@@ -1,10 +1,15 @@
-"""NeRF field network, grid backbone (counterpart of
+"""NeRF field networks (counterpart of
 dreamfusion_tpu/models/networks.py; reference nerf/network_grid.py).
 
-Tiled grid encoder (L=16, C=2, 2^16 table per level, desired resolution
-2048*bound) + 3x64 ReLU MLP -> (sigma, albedo), gaussian density blob,
-trunc_exp, frequency-encoded 2x64 background MLP, finite-difference
-normals. Under ``fp16`` the MLPs compute in bf16 with f32 parameters, as
+``_BaseNeRF`` holds what every field shares (density, background, the
+normalise-and-NaN rule of the normal); ``NeRFGridNetwork`` is the grid
+backbone, ``models/kailu.DVGOEditNetwork`` the editing field, and
+``build_model`` dispatches on ``cfg.backbone``.
+
+Grid backbone: tiled grid encoder (L=16, C=2, 2^16 table per level,
+desired resolution 2048*bound) + 3x64 ReLU MLP -> (sigma, albedo),
+gaussian density blob, trunc_exp, frequency-encoded 2x64 background MLP,
+finite-difference normals. Under ``fp16`` the MLPs compute in bf16 with f32 parameters, as
 flax ``Dense(dtype=bf16)`` does in the JAX package.
 
 Shading codes: 0 albedo, 1 lambertian, 2 textureless, 3 normal.
@@ -95,27 +100,60 @@ def _shade(albedo, normal, light_d, ratio: float, shading_code: int):
     return albedo * lam if code == SHADING_LAMBERTIAN else lam
 
 
-class NeRFGridNetwork(nn.Module):
+class _BaseNeRF(nn.Module):
+    """What the fields share (dreamfusion_tpu/models/networks.py:104-156).
+    Subclasses define ``common(x) -> (sigma, albedo)`` and
+    ``raw_normal(x)``, and call ``_init_bg_net`` after building their own
+    modules."""
+
+    # whether common / raw_normal / normal take table_bf16 (a field with a
+    # grid-encoder table)
+    has_table = False
+
+    def __init__(self, bound: float = 1.0, bg_radius: float = 1.4):
+        super().__init__()
+        self.bound = bound
+        self.bg_radius = bg_radius
+        self.bg_net = None
+
+    def _init_bg_net(self, num_layers_bg: int, hidden_dim_bg: int,
+                     dtype: torch.dtype) -> None:
+        if self.bg_radius > 0:
+            self.bg_net = MLP(freq_output_dim(3, 6), 3, hidden_dim_bg,
+                              num_layers_bg, dtype)
+
+    def density(self, x: torch.Tensor):
+        sigma, albedo = self.common(x)
+        return {"sigma": sigma, "albedo": albedo}
+
+    def background(self, d: torch.Tensor) -> torch.Tensor:
+        """Frequency-encoded MLP on ray directions, sigmoid rgb."""
+        return torch.sigmoid(self.bg_net(freq_encode(d, degree=6)))
+
+    def normal(self, x: torch.Tensor, **kw) -> torch.Tensor:
+        n = safe_normalize(self.raw_normal(x, **kw))
+        return torch.where(torch.isnan(n), torch.zeros_like(n), n)
+
+
+class NeRFGridNetwork(_BaseNeRF):
     """Grid backbone (reference nerf/network_grid.py:35-181)."""
+
+    has_table = True
 
     def __init__(self, bound: float = 1.0, bg_radius: float = 1.4,
                  num_layers: int = 3, hidden_dim: int = 64,
                  num_layers_bg: int = 2, hidden_dim_bg: int = 64,
                  compute_dtype: torch.dtype = torch.float32):
-        super().__init__()
-        self.bound = bound
-        self.bg_radius = bg_radius
+        super().__init__(bound, bg_radius)
         self.enc_spec = GridEncoderSpec(
             input_dim=3, num_levels=16, level_dim=2, base_resolution=16,
-            log2_hashmap_size=16, desired_resolution=2048 * bound)
+            log2_hashmap_size=16, desired_resolution=2048 * bound,
+            gridtype="tiled")
         self.embeddings = nn.Parameter(
             torch.empty(self.enc_spec.table_size, 2))
         self.sigma_net = MLP(self.enc_spec.output_dim, 4, hidden_dim,
                              num_layers, compute_dtype)
-        self.bg_net = None
-        if bg_radius > 0:
-            self.bg_net = MLP(freq_output_dim(3, 6), 3, hidden_dim_bg,
-                              num_layers_bg, compute_dtype)
+        self._init_bg_net(num_layers_bg, hidden_dim_bg, compute_dtype)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         with torch.no_grad():
@@ -138,14 +176,6 @@ class NeRFGridNetwork(nn.Module):
         albedo = torch.sigmoid(h[..., 1:4])
         return sigma, albedo
 
-    def density(self, x: torch.Tensor):
-        sigma, albedo = self.common(x)
-        return {"sigma": sigma, "albedo": albedo}
-
-    def background(self, d: torch.Tensor) -> torch.Tensor:
-        """Frequency-encoded MLP on ray directions, sigmoid rgb."""
-        return torch.sigmoid(self.bg_net(freq_encode(d, degree=6)))
-
     def raw_normal(self, x: torch.Tensor, epsilon: float = 1e-2,
                    table_bf16: bool = False):
         """-grad sigma by central differences (network_grid.py:90-105)."""
@@ -160,10 +190,6 @@ class NeRFGridNetwork(nn.Module):
             grads.append(0.5 * (s_p - s_m) / epsilon)
         return -torch.stack(grads, dim=-1)
 
-    def normal(self, x: torch.Tensor, table_bf16: bool = False) -> torch.Tensor:
-        n = safe_normalize(self.raw_normal(x, table_bf16=table_bf16))
-        return torch.where(torch.isnan(n), torch.zeros_like(n), n)
-
 
 class FieldFns(NamedTuple):
     """The renderer's view of a field (dreamfusion_tpu/renderer.py FieldFns;
@@ -173,23 +199,25 @@ class FieldFns(NamedTuple):
     normal: Optional[Callable]
 
 
-def make_field_fns(model: NeRFGridNetwork, bg: bool = True,
+def make_field_fns(model: _BaseNeRF, bg: bool = True,
                    table_bf16: bool = False) -> FieldFns:
     """field(x, d, light_d, ratio, shading_code) -> (sigma, color, normal);
     the albedo code never evaluates normals (network_grid.py:123-127).
     table_bf16: every table gather of these functions reads the bf16 view
-    (the JAX package's model.clone(table_bf16=True))."""
+    (the JAX package's model.clone(table_bf16=True)); it applies only to a
+    field that has a table (dreamfusion_tpu/training/trainer.py:276-278)."""
+    kw = {"table_bf16": True} if table_bf16 and model.has_table else {}
 
     def field(x, d, light_d, ratio, shading_code):
-        sigma, albedo = model.common(x, table_bf16)
+        sigma, albedo = model.common(x, **kw)
         if int(shading_code) == SHADING_ALBEDO:
             return sigma, albedo, torch.zeros_like(x)
-        n = model.normal(x, table_bf16)
+        n = model.normal(x, **kw)
         return sigma, _shade(albedo, n, light_d, float(ratio),
                              shading_code), n
 
     def normal(x):
-        return model.normal(x, table_bf16)
+        return model.normal(x, **kw)
 
     background = None
     if bg and model.bg_radius > 0:
@@ -198,11 +226,22 @@ def make_field_fns(model: NeRFGridNetwork, bg: bool = True,
 
 
 def build_model(cfg, device: Optional[torch.device] = None,
-                generator: Optional[torch.Generator] = None) -> NeRFGridNetwork:
-    """The grid backbone (reference main.py:86-94); the other backbones are
-    not ported yet."""
-    dtype = torch.bfloat16 if cfg.fp16 else torch.float32
-    model = NeRFGridNetwork(bound=cfg.bound, bg_radius=cfg.bg_radius,
-                            compute_dtype=dtype).to(resolve_device(device))
+                generator: Optional[torch.Generator] = None) -> _BaseNeRF:
+    """Backbone dispatch (reference main.py:86-94, and the editing path
+    main.py:100-102 through backbone "dvgo"). Weights are drawn from the
+    generator; a pretrained .dvgo file is loaded by the Trainer."""
+    if cfg.backbone == "grid":
+        dtype = torch.bfloat16 if cfg.fp16 else torch.float32
+        model = NeRFGridNetwork(bound=cfg.bound, bg_radius=cfg.bg_radius,
+                                compute_dtype=dtype)
+    elif cfg.backbone == "dvgo":
+        from dreamfusion_torch.models.kailu import DVGOEditNetwork
+
+        model = DVGOEditNetwork.from_config(cfg)
+    else:
+        raise NotImplementedError(
+            f"backbone {cfg.backbone!r} not implemented (choose from grid, "
+            "dvgo; the vanilla backbone is not ported yet)")
+    model = model.to(resolve_device(device))
     model.reset_parameters(generator)
     return model

@@ -46,6 +46,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 launch_counts: Dict[str, int] = {
     "grid_encoder_bwd": 0,
+    "grid_encoder_bwd_rows": 0,
     "composite_fwd": 0,
     "composite_bwd": 0,
     "attention_fwd": 0,

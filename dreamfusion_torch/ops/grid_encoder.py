@@ -1,4 +1,4 @@
-"""Multiresolution tiled grid encoder (counterpart of
+"""Multiresolution hash / tiled grid encoder (counterpart of
 dreamfusion_tpu/ops/grid_encoder.py; reference gridencoder/).
 
 Geometry, index arithmetic, init and the out-of-bounds -> 0 rule follow the
@@ -6,28 +6,40 @@ JAX package exactly:
 - level scale = exp2(l * log2(per_level_scale)) * base_resolution - 1,
   resolution = ceil(scale) + 1;
 - position = x01 * scale + 0.5, trilinear over the 8 corners;
-- row index: linear strides while stride <= table size, then % size; the
+- row index: linear strides while stride <= table size; a level of the
+  "hash" grid type whose stride ends above its table size takes the
+  spatial hash instead (XOR of coord_d * prime_d); then % size. The
   arithmetic is uint32 in the reference, done here in int64 masked to 32
-  bits (torch has no full uint32 multiply);
+  bits (torch has no full uint32 multiply). The stride itself wraps at
+  2^32, so a very fine level can end below its table size and stay linear;
 - per-level table sizes capped at 2**log2_hashmap_size, rounded up to a
   multiple of 8, flat [T, C] table; init U(-1e-4, 1e-4).
 
-Every level of the tiled grid is affine: corner c of a sample with corner-0
-row ``base`` lives at ``(base + corner_off_c) % size``. The forward is a
-plain gather plus trilinear blend (the JAX forward is XLA ``take``, not a
-Pallas kernel). The backward is ``_EncodeLevels.backward``: on CUDA it
-launches kernel A (csrc/grid_encoder_bwd.cu), on the CPU it runs
-``grid_encoder_bwd_plain`` (``index_add_`` of the 8 corners per level, the
-JAX ``pallas is None`` branch, grid_encoder.py:166-173).
+The forward is a plain gather plus trilinear blend (the JAX forward is XLA
+``take``, not a Pallas kernel). Which backward an encoder takes follows the
+JAX package (grid_encoder.py:461-464, 513-524):
+- every level affine (the tiled grid, or a hash spec so small that no level
+  hashes): corner c of a sample with corner-0 row ``base`` lives at
+  ``(base + corner_off_c) % size``. ``_EncodeLevels.backward`` launches
+  kernel A (csrc/grid_encoder_bwd.cu) on CUDA and runs
+  ``grid_encoder_bwd_plain`` on the CPU;
+- any level hashed: every corner of every level goes through the index
+  function (a hashed corner is not ``base + offset``), the residuals are
+  the global rows ``[L, 8, B]``, and ``_EncodeLevelsRows.backward`` launches
+  kernel E (the second entry of csrc/grid_encoder_bwd.cu) on CUDA and runs
+  ``grid_encoder_bwd_rows_plain`` on the CPU;
+- ``differentiable_inputs=True``: plain autograd through the gather, which
+  also gives d(out)/d(position) with d(frac)/dx = scale (the reference's
+  calc_grad_inputs); no custom backward.
 
-Gradients w.r.t. the positions are not propagated (reference default
-calc_grad_inputs=False). The spec is the tiled grid only: the hashed grid
-type (gridtype="hash" in the JAX package, kernel K1c) is not ported yet.
+Otherwise gradients w.r.t. the positions are not propagated (reference
+default calc_grad_inputs=False).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
@@ -37,12 +49,17 @@ import torch
 from dreamfusion_torch.device import resolve_device
 from dreamfusion_torch.ops import cuda
 
+_PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437,
+           2165219737)
 _U32 = (1 << 32) - 1
 
 
+@functools.lru_cache(maxsize=None)
 def _level_geometry(num_levels, base_resolution, per_level_scale,
                     log2_hashmap_size, input_dim, align_corners):
-    """Static per-level (scale, resolution, size, offset) and total rows."""
+    """Static per-level (scale, resolution, size, offset) and total rows.
+    Cached: an encoder call reads it several times per level. The lists
+    are shared between callers, which only read them."""
     max_params = 2 ** log2_hashmap_size
     S = math.log2(per_level_scale)
     scales, resolutions, sizes, offsets = [], [], [], []
@@ -64,8 +81,7 @@ def _level_geometry(num_levels, base_resolution, per_level_scale,
 
 @dataclass(frozen=True)
 class GridEncoderSpec:
-    """Static geometry of the tiled grid encoder (reference
-    grid.py:92-133, gridtype="tiled")."""
+    """Static geometry of the grid encoder (reference grid.py:92-133)."""
     input_dim: int = 3
     num_levels: int = 16
     level_dim: int = 2
@@ -73,9 +89,15 @@ class GridEncoderSpec:
     base_resolution: int = 16
     log2_hashmap_size: int = 19
     desired_resolution: Optional[float] = None
+    gridtype: str = "hash"      # 'hash' | 'tiled'
     align_corners: bool = False
+    # True keeps d(out)/d(position) (plain autograd, no kernel)
+    differentiable_inputs: bool = False
 
     def __post_init__(self):
+        if self.gridtype not in ("hash", "tiled"):
+            raise ValueError(f"gridtype must be 'hash' or 'tiled', got "
+                             f"{self.gridtype!r}")
         if self.desired_resolution is not None:
             pls = math.exp2(math.log2(self.desired_resolution
                                       / self.base_resolution)
@@ -105,6 +127,9 @@ class GridEncoderSpec:
         return u * 2e-4 - 1e-4
 
     def _strides(self, level: int):
+        """(linear strides by dimension, whether the level hashes). The
+        stride wraps at 2^32 like the reference's uint32, and the hash
+        decision reads the wrapped value."""
         _, resolutions, sizes, _, _ = self.geometry
         size = sizes[level]
         mult = resolutions[level] if self.align_corners else resolutions[level] + 1
@@ -114,29 +139,43 @@ class GridEncoderSpec:
                 break
             strides[d] = stride
             stride = (stride * mult) & _U32
-        return strides
+        return strides, self.gridtype == "hash" and stride > size
+
+    @property
+    def hashed_levels(self) -> Tuple[bool, ...]:
+        return tuple(self._strides(lvl)[1] for lvl in range(self.num_levels))
 
     def _corner_index_fn(self, level: int):
         """fn(coords [..., D] int64) -> flat row [...] (offset included),
         get_grid_index of gridencoder.cu:54-72 with uint32 wrap-around."""
         _, _, sizes, offsets, _ = self.geometry
         size, offset = sizes[level], offsets[level]
-        strides = self._strides(level)
+        strides, hashed = self._strides(level)
 
         def index_fn(coords: torch.Tensor) -> torch.Tensor:
             coords = coords.long() & _U32
             idx = torch.zeros(coords.shape[:-1], dtype=torch.int64,
                               device=coords.device)
-            for d, s in strides.items():
-                idx = (idx + coords[..., d] * s) & _U32
+            if hashed:
+                # every dimension enters the hash; mask each product to 32
+                # bits before the XOR (int64 products wrap modulo 2^64,
+                # which keeps their low 32 bits)
+                for d in range(self.input_dim):
+                    idx = idx ^ ((coords[..., d] * _PRIMES[d]) & _U32)
+            else:
+                for d, s in strides.items():
+                    idx = (idx + coords[..., d] * s) & _U32
             return idx % size + offset
 
         return index_fn
 
-    def _corner_offsets(self, level: int) -> Tuple[int, ...]:
-        """(corner_index - corner0_index) % size for the 2^D corners."""
+    def _corner_offsets(self, level: int) -> Optional[Tuple[int, ...]]:
+        """(corner_index - corner0_index) % size for the 2^D corners, or
+        None where the level hashes (its corners are not affine)."""
         _, _, sizes, _, _ = self.geometry
-        strides = self._strides(level)
+        strides, hashed = self._strides(level)
+        if hashed:
+            return None
         offs = []
         for corner in range(1 << self.input_dim):
             o = sum(s for d, s in strides.items() if (corner >> d) & 1)
@@ -152,47 +191,101 @@ class GridEncoderSpec:
             rows.append([sizes[lvl], offsets[lvl], *self._corner_offsets(lvl)])
         return torch.tensor(rows, dtype=torch.int32, device=device)
 
+    def _unit_positions(self, inputs: torch.Tensor, bound: float):
+        """Positions [..., D] in [-bound, bound] -> (x01 transposed [D, B],
+        oob [B] bool)."""
+        x = inputs.reshape(-1, self.input_dim).float()
+        x01 = (x + bound) / (2.0 * bound)
+        return x01.t(), ((x01 < 0.0) | (x01 > 1.0)).any(-1)
+
+    def _level_corners(self, xT: torch.Tensor, lvl: int):
+        """(integer corner-0 coordinates [D, B] int64, weights [2^D, B])."""
+        pos = xT * self.geometry[0][lvl] + (0.0 if self.align_corners else 0.5)
+        pos_grid = torch.floor(pos)
+        frac = pos - pos_grid           # d(frac)/dx = scale (floor: 0)
+        ws = []
+        for corner in range(1 << self.input_dim):
+            w = torch.ones_like(frac[0])
+            for d in range(self.input_dim):
+                w = w * (frac[d] if (corner >> d) & 1 else 1.0 - frac[d])
+            ws.append(w)
+        # float -> uint32 saturates in the JAX package (a negative
+        # coordinate, which only an out-of-range input has, reads 0)
+        coords = pos_grid.detach().clamp(min=0.0).long().clamp(max=_U32)
+        return coords, torch.stack(ws)
+
+    def _level_rows(self, pos_grid: torch.Tensor, lvl: int) -> torch.Tensor:
+        """Global table rows [2^D, B] int64 of the 2^D corners, each through
+        the index function: corner c is at pos_grid + bits(c), which on a
+        hashed level is not a row offset from corner 0."""
+        index_fn = self._corner_index_fn(lvl)
+        bits = torch.tensor([[(c >> d) & 1 for d in range(self.input_dim)]
+                             for c in range(1 << self.input_dim)],
+                            dtype=torch.int64, device=pos_grid.device)
+        return index_fn(pos_grid.t()[None, :, :] + bits[:, None, :])
+
     def residuals(self, inputs: torch.Tensor, bound: float = 1.0):
         """Positions [B, D] in [-bound, bound] -> (base_all [L,B] int32
         local corner-0 rows, w_all [L, 2^D, B] f32 weights, oob [B] bool).
-        These are the JAX VJP's residuals and kernel A's inputs."""
-        x = inputs.reshape(-1, self.input_dim).float()
-        x01 = (x + bound) / (2.0 * bound)
-        oob = ((x01 < 0.0) | (x01 > 1.0)).any(-1)
-        scales, _, _, offsets, _ = self.geometry
-        xT = x01.t()
+        These are the JAX VJP's residuals and kernel A's inputs (every
+        level affine)."""
+        xT, oob = self._unit_positions(inputs, bound)
+        offsets = self.geometry[3]
         bases, weights = [], []
         for lvl in range(self.num_levels):
-            pos = xT * scales[lvl] + (0.0 if self.align_corners else 0.5)
-            pos_grid = torch.floor(pos)
-            frac = pos - pos_grid
-            idx0 = self._corner_index_fn(lvl)(pos_grid.long().t())
-            ws = []
-            for corner in range(1 << self.input_dim):
-                w = torch.ones_like(frac[0])
-                for d in range(self.input_dim):
-                    w = w * (frac[d] if (corner >> d) & 1 else 1.0 - frac[d])
-                ws.append(w)
+            pos_grid, w8 = self._level_corners(xT, lvl)
+            idx0 = self._corner_index_fn(lvl)(pos_grid.t())
             bases.append((idx0 - offsets[lvl]).to(torch.int32))
-            weights.append(torch.stack(ws))
+            weights.append(w8)
         return torch.stack(bases), torch.stack(weights), oob
+
+    def residuals_rows(self, inputs: torch.Tensor, bound: float = 1.0):
+        """Positions [B, D] -> (rows [L, 2^D, B] int32 global table rows of
+        the corners, level offsets included; w_all [L, 2^D, B] f32; oob [B]
+        bool): the JAX VJP's residuals of an encoder with a hashed level
+        (grid_encoder.py:261-266) and kernel E's inputs."""
+        xT, oob = self._unit_positions(inputs, bound)
+        rows, weights = [], []
+        for lvl in range(self.num_levels):
+            pos_grid, w8 = self._level_corners(xT, lvl)
+            rows.append(self._level_rows(pos_grid, lvl).to(torch.int32))
+            weights.append(w8)
+        return torch.stack(rows), torch.stack(weights), oob
+
+    def _encode_differentiable(self, embeddings, inputs, bound: float):
+        """[B, L*C] and oob by plain autograd: the gather's transpose is the
+        table gradient, and the weights carry d/d(position)."""
+        xT, oob = self._unit_positions(inputs, bound)
+        outs = []
+        for lvl in range(self.num_levels):
+            pos_grid, w8 = self._level_corners(xT, lvl)
+            vals = embeddings[self._level_rows(pos_grid, lvl)]   # [2^D, B, C]
+            outs.append((w8[..., None] * vals.float()).sum(0))
+        return torch.cat(outs, dim=-1), oob
 
     def __call__(self, embeddings: torch.Tensor, inputs: torch.Tensor,
                  bound: float = 1.0) -> torch.Tensor:
         """Encode positions in [-bound, bound] -> [..., L*C] features."""
         prefix = inputs.shape[:-1]
-        with torch.no_grad():
-            base_all, w_all, oob = self.residuals(inputs, bound)
-        out = _EncodeLevels.apply(embeddings, base_all, w_all,
-                                  _level_consts(self, embeddings.device))
+        if self.differentiable_inputs:
+            out, oob = self._encode_differentiable(embeddings, inputs, bound)
+        elif any(self.hashed_levels):
+            with torch.no_grad():
+                rows, w_all, oob = self.residuals_rows(inputs, bound)
+            out = _EncodeLevelsRows.apply(embeddings, rows, w_all)
+        else:
+            with torch.no_grad():
+                base_all, w_all, oob = self.residuals(inputs, bound)
+            out = _EncodeLevels.apply(embeddings, base_all, w_all,
+                                      _level_consts(self, embeddings.device))
         out = out.reshape(out.shape[0], -1)
         out = torch.where(oob[:, None], torch.zeros_like(out), out)
         return out.reshape(*prefix, self.output_dim)
 
 
 class _LevelConsts:
-    """Per-device constants of one spec: the kernel table and the corner
-    offsets as tensors."""
+    """Per-device constants of one spec whose levels are all affine: kernel
+    A's table and the corner offsets as tensors."""
 
     def __init__(self, spec: GridEncoderSpec, device: torch.device):
         self.table = spec.level_table(device)
@@ -249,6 +342,8 @@ def _lib():
     if not getattr(lib, "_typed", False):
         lib.grid_encoder_bwd.argtypes = [_VP] * 5 + [_I, _I, _VP]
         lib.grid_encoder_bwd.restype = _I
+        lib.grid_encoder_bwd_rows.argtypes = [_VP] * 4 + [_I, _I, _I, _VP]
+        lib.grid_encoder_bwd_rows.restype = _I
         lib._typed = True
     return lib
 
@@ -293,3 +388,67 @@ class _EncodeLevels(torch.autograd.Function):
         d = grid_encoder_bwd(base_all, w_all, cot.float().contiguous(),
                              ctx.consts)
         return d.to(ctx.emb_dtype), None, None, None
+
+
+# -- encoders with a hashed level: residuals are the corner rows -----------------
+
+def encode_rows_fwd(emb, rows, w_all) -> torch.Tensor:
+    """Plain gather + trilinear blend over given rows -> [B, L, C] (f32)."""
+    outs = []
+    for lvl in range(rows.shape[0]):
+        vals = emb[rows[lvl].long()].float()                      # [8, B, C]
+        outs.append((w_all[lvl][..., None] * vals).sum(0))
+    return torch.stack(outs, dim=1)
+
+
+def grid_encoder_bwd_rows_plain(rows, w_all, cot, total: int) -> torch.Tensor:
+    """d_emb [T, C]: d_emb[rows[l, c, j]] += w_all[l, c, j] * cot[j, l] by
+    index_add_ per level and corner, summed in f32 (the JAX package's f32
+    ``.at[].add``, grid_encoder.py:268-272)."""
+    d = torch.zeros(total, cot.shape[-1], device=cot.device,
+                    dtype=torch.float32)
+    for lvl in range(rows.shape[0]):
+        for c in range(rows.shape[1]):
+            d.index_add_(0, rows[lvl, c].long(),
+                         w_all[lvl, c][:, None] * cot[:, lvl, :])
+    return d
+
+
+def grid_encoder_bwd_rows_cuda(rows, w_all, cot, total: int) -> torch.Tensor:
+    """Kernel E: same contract as grid_encoder_bwd_rows_plain (C = 2, 8
+    corners), all levels in one launch."""
+    L, n_c, B = rows.shape
+    dev = rows.device
+    cuda.require(rows, "rows", torch.int32, (L, 8, B))
+    cuda.require(w_all, "w_all", torch.float32, (L, 8, B), dev)
+    cuda.require(cot, "cot", torch.float32, (B, L, 2), dev)
+    d = torch.zeros(total, 2, device=dev, dtype=torch.float32)
+    err = _lib().grid_encoder_bwd_rows(rows.data_ptr(), w_all.data_ptr(),
+                                       cot.data_ptr(), d.data_ptr(), L, B,
+                                       total, cuda.stream_ptr(dev))
+    cuda.check_launch(err, "grid_encoder_bwd_rows")
+    cuda.launch_counts["grid_encoder_bwd_rows"] += 1
+    return d
+
+
+def grid_encoder_bwd_rows(rows, w_all, cot, total: int):
+    if cot.is_cuda:
+        return grid_encoder_bwd_rows_cuda(rows, w_all, cot, total)
+    return grid_encoder_bwd_rows_plain(rows, w_all, cot, total)
+
+
+class _EncodeLevelsRows(torch.autograd.Function):
+    """emb [T, C], rows [L, 8, B], w_all [L, 8, B] -> [B, L, C]."""
+
+    @staticmethod
+    def forward(ctx, emb, rows, w_all):
+        ctx.save_for_backward(rows, w_all)
+        ctx.emb_shape, ctx.emb_dtype = emb.shape, emb.dtype
+        return encode_rows_fwd(emb, rows, w_all)
+
+    @staticmethod
+    def backward(ctx, cot):
+        rows, w_all = ctx.saved_tensors
+        d = grid_encoder_bwd_rows(rows, w_all, cot.float().contiguous(),
+                                  ctx.emb_shape[0])
+        return d.to(ctx.emb_dtype), None, None

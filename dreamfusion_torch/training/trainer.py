@@ -2,7 +2,9 @@
 dreamfusion_tpu/training/trainer.py; reference nerf/utils.py:151-968).
 
 One step: cameras -> shading schedule -> occupancy-grid render (fused
-compositor) -> SDS guidance -> regularizers -> backward -> Adam. Every 16
+compositor) -> SDS guidance -> regularizers -> backward -> Adam, on the
+grid backbone or on the editing field (``--backbone dvgo``, whose
+pretrained scene the Trainer loads at construction). Every 16
 steps the occupancy grid is refreshed and the adaptive sample budgets are
 re-picked from the last step's count statistics, with the JAX package's
 bucket ladder (``_pick_K_bucket``), so a step computes what the JAX step
@@ -46,7 +48,7 @@ from dreamfusion_torch.guidance import Guidance, build_guidance
 from dreamfusion_torch.models.networks import (SHADING_ALBEDO,
                                                SHADING_LAMBERTIAN,
                                                SHADING_TEXTURELESS,
-                                               NeRFGridNetwork, build_model,
+                                               _BaseNeRF, build_model,
                                                make_field_fns)
 from dreamfusion_torch.ops.composite import near_far_from_aabb
 from dreamfusion_torch.ops.marching import (SQRT3, GridState,
@@ -83,7 +85,7 @@ def _pick_K_bucket(q95: float, cap: int) -> int:
     return cap
 
 
-def make_grads_fn(cfg: Config, model: NeRFGridNetwork, guidance: Guidance,
+def make_grads_fn(cfg: Config, model: _BaseNeRF, guidance: Guidance,
                   grid_K: Optional[int] = None,
                   compact_M: Optional[int] = None):
     """grads_fn(step, text_z, grid_state, draws=None, generator=None,
@@ -171,7 +173,17 @@ def make_grads_fn(cfg: Config, model: NeRFGridNetwork, guidance: Guidance,
         for p in model.parameters():
             p.grad = None
         with record_function("step/backward"):
-            loss.backward()
+            # on the editing field (frozen density) a loss can reach no
+            # trainable parameter: without guidance, or on a textureless
+            # step without a background net. All gradients are zero then
+            if loss.requires_grad:
+                loss.backward()
+            # a parameter the loss did not reach gets zeros, not None, as
+            # jax.grad gives it: Adam then decays its moments, advances its
+            # count and moves it, as optax does
+            for p in model.parameters():
+                if p.requires_grad and p.grad is None:
+                    p.grad = torch.zeros_like(p)
         metrics["loss"] = loss.detach()
         return loss.detach(), metrics
 
@@ -197,7 +209,7 @@ def _stage(name: str, timings: Optional[Dict[str, float]],
             timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
 
 
-def make_staged_grid_eval(cfg: Config, model: NeRFGridNetwork, H: int,
+def make_staged_grid_eval(cfg: Config, model: _BaseNeRF, H: int,
                           W: int):
     """The sorted, bucketed staged eval of the grid renderer
     (trainer.py:221-859, its default scatter-assembled frame): the
@@ -350,7 +362,7 @@ def make_staged_grid_eval(cfg: Config, model: NeRFGridNetwork, H: int,
     return render_frame
 
 
-def make_eval_render(cfg: Config, model: NeRFGridNetwork, H: int, W: int):
+def make_eval_render(cfg: Config, model: _BaseNeRF, H: int, W: int):
     """Full-frame eval renderer: white background unless the model has a
     background net, albedo shading, no perturbation (trainer.py:862-934).
     The grid renderer takes the staged eval (the port has no device mesh);
@@ -388,7 +400,7 @@ class Trainer:
     reference Trainer, nerf/utils.py:151-968)."""
 
     def __init__(self, name: str, cfg: Config,
-                 model: Optional[NeRFGridNetwork] = None,
+                 model: Optional[_BaseNeRF] = None,
                  guidance: Optional[Guidance] = None,
                  workspace: Optional[str] = None,
                  use_checkpoint: Optional[str] = None,
@@ -400,6 +412,10 @@ class Trainer:
         self.host_gen = torch.Generator().manual_seed(cfg.seed)
         self.model = model if model is not None else build_model(
             cfg, self.device, self.gen)
+        if cfg.pretrained_dvgo and hasattr(self.model, "load_pretrained"):
+            # a model built above holds the file's state already
+            self.model.load_pretrained(
+                cfg.pretrained_dvgo if model is not None else None)
         self.guidance = guidance if guidance is not None else build_guidance(
             cfg, self.device, self.gen)
         self.workspace = workspace or cfg.workspace

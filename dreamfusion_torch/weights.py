@@ -8,8 +8,11 @@ module names, so the conversion is mechanical:
 - Dense ``kernel`` [in, out] -> ``weight`` [out, in];
 - Conv ``kernel`` HWIO -> ``weight`` OIHW;
 - GroupNorm / LayerNorm ``scale`` -> ``weight``;
-- ``bias`` and the grid table ``embeddings`` unchanged.
-It covers the NeRF (tables, MLPs, background net) and the SD UNet and VAE.
+- ``bias``, the grid table ``embeddings`` and the DVGO grids ``density`` and
+  ``k0`` (4-D, but not kernels) unchanged.
+It covers the NeRF fields (tables, MLPs, background net; the editing
+field's ``main.density``, ``main.k0``, ``main.rgbnet.*``) and the SD UNet
+and VAE.
 VAE decoder parameters are dropped: the port's VAE is encoder-only.
 
 ``from_jax_grid_state(state)`` carries the occupancy-grid state across, so

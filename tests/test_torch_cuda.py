@@ -29,7 +29,8 @@ def test_grid_encoder_bwd_kernel_matches_index_add(dev):
     from dreamfusion_torch.ops import grid_encoder as ge
 
     spec = ge.GridEncoderSpec(num_levels=16, level_dim=2, base_resolution=16,
-                              log2_hashmap_size=16, desired_resolution=2048)
+                              log2_hashmap_size=16, desired_resolution=2048,
+                              gridtype="tiled")
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.rand(50_000, 3, device=dev, generator=g) * 2 - 1
     base, w, _ = spec.residuals(x)
@@ -42,6 +43,38 @@ def test_grid_encoder_bwd_kernel_matches_index_add(dev):
     d_p = ge.grid_encoder_bwd_plain(base, w, cot, consts)
     torch.cuda.synchronize()
     assert (d_k - d_p).abs().max() <= 1e-5 * d_p.abs().max()
+
+
+@pytest.mark.parametrize("spec_kw,B", [
+    (dict(), 100_000),
+    (dict(num_levels=4, base_resolution=8, per_level_scale=1.5,
+          log2_hashmap_size=9), 20_000)])
+def test_grid_encoder_bwd_rows_kernel_matches_index_add(dev, spec_kw, B):
+    """Kernel E vs index_add_ per level and corner, through the encoder's
+    backward: the default 16-level hash spec and a 4-level one with tiny
+    tables; points outside the box among them. Atomics sum in another
+    order, so 2e-5 of the largest entry."""
+    from dreamfusion_torch.ops import cuda as kcuda
+    from dreamfusion_torch.ops import grid_encoder as ge
+
+    spec = ge.GridEncoderSpec(gridtype="hash", **spec_kw)
+    assert any(spec.hashed_levels)
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = (torch.rand(B, 3, device=dev, generator=g) * 2 - 1) * 1.05
+    emb = spec.init(g, dev).requires_grad_(True)
+    cot = torch.randn(B, spec.output_dim, device=dev, generator=g)
+    n0 = dict(kcuda.launch_counts)
+    out = spec(emb, x)
+    (out * cot).sum().backward()
+    assert kcuda.launch_counts["grid_encoder_bwd_rows"] \
+        == n0["grid_encoder_bwd_rows"] + 1
+    assert kcuda.launch_counts["grid_encoder_bwd"] == n0["grid_encoder_bwd"]
+    rows, w, oob = spec.residuals_rows(x)
+    cot_in = (cot * (~oob)[:, None]).reshape(B, spec.num_levels, 2)
+    d_p = ge.grid_encoder_bwd_rows_plain(rows, w, cot_in, spec.table_size)
+    torch.cuda.synchronize()
+    assert oob.any() and not out[oob].abs().any()
+    assert (emb.grad - d_p).abs().max() <= 2e-5 * d_p.abs().max()
 
 
 @pytest.mark.parametrize("K", [32, 128])

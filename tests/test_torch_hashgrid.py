@@ -1,0 +1,266 @@
+"""Parity of the port's hash grid encoder and encoder factory with the JAX
+package, on the CPU. Inputs come from numpy seeds and go through both.
+
+The hashed grid type's table gradient is the JAX package's kernel K1c
+(ops/pallas_scatter.py::matmul_scatter_add); the port's counterpart is
+kernel E, whose plain version runs here. The f32 XLA scatter
+(scatter_impl="xla") is the oracle; K1c itself, in interpret mode, rounds
+its updates to bf16 and is a looser second check.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dreamfusion_tpu.ops import encoders as jenc
+from dreamfusion_tpu.ops.grid_encoder import GridEncoderSpec as JSpec
+
+from dreamfusion_torch.ops import encoders as tenc
+from dreamfusion_torch.ops import grid_encoder as tge
+from dreamfusion_torch.ops.grid_encoder import GridEncoderSpec as TSpec
+
+DEFAULT = dict()                       # L=16, C=2, base 16, scale 2, 2^19
+SMALL = dict(input_dim=3, num_levels=4, level_dim=2, base_resolution=8,
+             per_level_scale=1.5, log2_hashmap_size=9)
+SPECS = {"default": DEFAULT, "small": SMALL}
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _points(n, seed):
+    """Uniform points in the box, with points on its faces and corners, on
+    one face, and outside it on both sides."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    k = n // 32
+    x[:k] = np.where(rng.uniform(size=(k, 3)) < 0.5, -1.0, 1.0)
+    x[k:2 * k, 0] = 1.0
+    x[2 * k:3 * k, 1] = -1.0
+    x[3 * k:4 * k] = rng.uniform(-1.3, -1.001, (k, 3))
+    x[4 * k:5 * k] = rng.uniform(1.001, 1.3, (k, 3))
+    return x
+
+
+def _jax_rows(js, x):
+    """The JAX encoder's corner rows [L, 8, B] and weights, as its forward
+    builds them (grid_encoder.py:470-500)."""
+    xT = ((jnp.asarray(x) + 1.0) / 2.0).T
+    rows, ws = [], []
+    for lvl in range(js.num_levels):
+        pos = xT * js.geometry[0][lvl] + 0.5
+        pg = jnp.floor(pos)
+        frac = pos - pg
+        pg = pg.astype(jnp.uint32)
+        fn = js._corner_index_fn(lvl)
+        r8, w8 = [], []
+        for c in range(8):
+            w = jnp.ones_like(frac[0])
+            cc = []
+            for d in range(3):
+                bit = (c >> d) & 1
+                w = w * (frac[d] if bit else 1.0 - frac[d])
+                cc.append(pg[d] + 1 if bit else pg[d])
+            r8.append(fn(jnp.stack(cc, -1)))
+            w8.append(w)
+        rows.append(np.stack([np.asarray(r) for r in r8]))
+        ws.append(np.stack([np.asarray(w) for w in w8]))
+    return np.stack(rows), np.stack(ws)
+
+
+def test_hashed_levels_and_corner_rows_equal_jax_exactly():
+    """(a) Default 16-level hash spec: levels 3-11, 14 and 15 hash; 12 and
+    13 do not, because the uint32 stride wraps below the table size. The 8
+    corner rows of 2,048 points are equal to the JAX package's, exactly,
+    box faces and out-of-range points included."""
+    js, ts = JSpec(scatter_impl="xla"), TSpec()
+    assert js.geometry == ts.geometry and ts.table_size == 7_131_240
+    pattern = [js._corner_offsets(l) is None for l in range(16)]
+    assert pattern == [l in (3, 4, 5, 6, 7, 8, 9, 10, 11, 14, 15)
+                       for l in range(16)]
+    assert list(ts.hashed_levels) == pattern
+    for l in range(16):
+        assert ts._corner_offsets(l) == js._corner_offsets(l)
+    x = _points(2048, 0)
+    rows, w, oob = ts.residuals_rows(_t(x))
+    jrows, jw = _jax_rows(js, x)
+    assert rows.dtype == torch.int32 and rows.shape == (16, 8, 2048)
+    np.testing.assert_array_equal(rows.numpy(), jrows)
+    np.testing.assert_allclose(w.numpy(), jw, atol=1e-7)
+    assert oob.sum() == 2 * (2048 // 32)
+    assert int(rows.min()) >= 0 and int(rows.max()) < ts.table_size
+
+
+@pytest.mark.parametrize("name", ["default", "small"])
+def test_hash_forward_and_table_grad_match_jax_xla(name):
+    """(b), (c) Forward atol 1e-7; table gradient against the f32 XLA
+    scatter to 1e-5 of its largest entry (another summation order);
+    out-of-range inputs read zeros and add nothing to the gradient."""
+    kw = SPECS[name]
+    js, ts = JSpec(scatter_impl="xla", **kw), TSpec(**kw)
+    assert any(ts.hashed_levels)
+    rng = np.random.default_rng(1)
+    B = 1024
+    emb = rng.uniform(-0.1, 0.1, (ts.table_size, 2)).astype(np.float32)
+    x = _points(B, 2)
+    cot = rng.normal(size=(B, ts.output_dim)).astype(np.float32)
+
+    et = _t(emb).requires_grad_(True)
+    out_t = ts(et, _t(x))
+    (out_t * _t(cot)).sum().backward()
+    out_j, vjp = jax.vjp(lambda e: js(e, jnp.asarray(x)), jnp.asarray(emb))
+    np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j),
+                               atol=1e-7)
+    oob = (np.abs(x) > 1).any(-1)
+    assert oob.any() and not np.abs(out_t.detach().numpy()[oob]).any()
+    g_j = np.asarray(vjp(jnp.asarray(cot))[0])
+    np.testing.assert_allclose(et.grad.numpy(), g_j,
+                               atol=1e-5 * np.abs(g_j).max())
+
+    # kernel E's contract on the same residuals: its plain version equals
+    # the autograd table gradient exactly
+    rows, w, _ = ts.residuals_rows(_t(x))
+    cot_t = torch.where(torch.from_numpy(oob)[:, None], 0.0, _t(cot))
+    d = tge.grid_encoder_bwd_rows_plain(
+        rows, w, cot_t.reshape(B, ts.num_levels, 2), ts.table_size)
+    np.testing.assert_array_equal(d.numpy(), et.grad.numpy())
+
+
+@pytest.mark.parametrize("name,B", [("default", 256), ("small", 64)])
+def test_hash_table_grad_matches_k1c_in_interpret_mode(name, B):
+    """(c) Against K1c itself (scatter_impl="interpret" runs
+    matmul_scatter_add in the Pallas interpreter for every level): 2e-2 of
+    the largest entry, since K1c rounds its updates to bf16."""
+    kw = SPECS[name]
+    js, ts = JSpec(scatter_impl="interpret", **kw), TSpec(**kw)
+    rng = np.random.default_rng(3)
+    emb = rng.uniform(-1e-4, 1e-4, (ts.table_size, 2)).astype(np.float32)
+    x = rng.uniform(-0.9, 0.9, (B, 3)).astype(np.float32)
+    cot = rng.normal(size=(B, ts.output_dim)).astype(np.float32)
+    g_j = np.asarray(jax.grad(lambda e: jnp.sum(js(e, jnp.asarray(x))
+                                                * cot))(jnp.asarray(emb)))
+    et = _t(emb).requires_grad_(True)
+    (ts(et, _t(x)) * _t(cot)).sum().backward()
+    scale = np.abs(g_j).max()
+    assert scale > 0
+    np.testing.assert_allclose(et.grad.numpy() / scale, g_j / scale,
+                               atol=2e-2)
+
+
+def test_hash_spec_without_hashed_level_takes_kernel_a_path(monkeypatch):
+    """(d) A hash spec small enough that no level hashes is all affine and
+    goes through _EncodeLevels (kernel A on the card), like the JAX
+    package's oct path; a spec with a hashed level goes through
+    _EncodeLevelsRows (kernel E). The tiled spec's residuals are the JAX
+    package's."""
+    kw = dict(num_levels=3, base_resolution=4, log2_hashmap_size=19)
+    js, ts = JSpec(scatter_impl="xla", **kw), TSpec(**kw)
+    assert ts.gridtype == "hash" and not any(ts.hashed_levels)
+    assert all(js._corner_offsets(l) is not None for l in range(3))
+    calls = []
+    for fn in ("grid_encoder_bwd", "grid_encoder_bwd_rows"):
+        orig = getattr(tge, fn)
+        monkeypatch.setattr(tge, fn, lambda *a, _o=orig, _n=fn: (
+            calls.append(_n), _o(*a))[1])
+    rng = np.random.default_rng(4)
+    x = _points(256, 5)
+    emb = rng.uniform(-0.1, 0.1, (ts.table_size, 2)).astype(np.float32)
+    et = _t(emb).requires_grad_(True)
+    out = ts(et, _t(x))
+    out.sum().backward()
+    assert calls == ["grid_encoder_bwd"]
+    out_j, vjp = jax.vjp(lambda e: js(e, jnp.asarray(x)), jnp.asarray(emb))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j),
+                               atol=1e-7)
+    g_j = np.asarray(vjp(jnp.ones_like(out_j))[0])
+    np.testing.assert_allclose(et.grad.numpy(), g_j,
+                               atol=1e-5 * np.abs(g_j).max())
+    hashed = TSpec(**SMALL)
+    eh = torch.zeros(hashed.table_size, 2, requires_grad=True)
+    hashed(eh, _t(x)).sum().backward()
+    assert calls == ["grid_encoder_bwd", "grid_encoder_bwd_rows"]
+
+    tiled_kw = dict(num_levels=16, log2_hashmap_size=16,
+                    desired_resolution=2048, gridtype="tiled")
+    jt, tt = JSpec(**tiled_kw), TSpec(**tiled_kw)
+    base, w, _ = tt.residuals(_t(x))
+    jrows, jw = _jax_rows(jt, x)
+    offsets = np.array(tt.geometry[3])[:, None]
+    np.testing.assert_array_equal(base.numpy(), jrows[:, 0] - offsets)
+    np.testing.assert_allclose(w.numpy(), jw, atol=1e-7)
+
+
+@pytest.mark.parametrize("gridtype", ["hash", "tiled"])
+def test_differentiable_inputs_match_jax(gridtype):
+    """(e) differentiable_inputs=True: plain autograd through the gather;
+    values 1e-7, d/dx and the table gradient 1e-5 of the largest entry."""
+    kw = dict(SMALL, gridtype=gridtype, differentiable_inputs=True)
+    js, ts = JSpec(scatter_impl="xla", **kw), TSpec(**kw)
+    rng = np.random.default_rng(6)
+    B = 128
+    emb = rng.uniform(-0.1, 0.1, (ts.table_size, 2)).astype(np.float32)
+    x = rng.uniform(-0.95, 0.95, (B, 3)).astype(np.float32)
+    cot = rng.normal(size=(B, ts.output_dim)).astype(np.float32)
+    et, xt = _t(emb).requires_grad_(True), _t(x).requires_grad_(True)
+    out = ts(et, xt)
+    (out * _t(cot)).sum().backward()
+    out_j, vjp = jax.vjp(lambda e, p: js(e, p), jnp.asarray(emb),
+                         jnp.asarray(x))
+    ge_j, gx_j = (np.asarray(g) for g in vjp(jnp.asarray(cot)))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j),
+                               atol=1e-7)
+    assert np.abs(gx_j).max() > 0
+    np.testing.assert_allclose(xt.grad.numpy(), gx_j,
+                               atol=1e-5 * np.abs(gx_j).max())
+    np.testing.assert_allclose(et.grad.numpy(), ge_j,
+                               atol=1e-5 * np.abs(ge_j).max())
+    # without the flag no gradient reaches the positions
+    x2 = _t(x).requires_grad_(True)
+    TSpec(**dict(kw, differentiable_inputs=False))(_t(emb), x2)
+    assert x2.grad is None
+
+
+@pytest.mark.parametrize("encoding,out_dim", [
+    ("None", 3), ("frequency", 39), ("sphere_harmonics", 16),
+    ("hashgrid", 32), ("tiledgrid", 32)])
+def test_get_encoder_strings_and_output_dims(encoding, out_dim):
+    """(f) The five strings of the factory, their output dims and values
+    against the JAX package's; an unknown string raises."""
+    jfn, jdim = jenc.get_encoder(encoding)
+    tfn, tdim = tenc.get_encoder(encoding)
+    assert tdim == jdim == out_dim
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(64, 3)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=-1, keepdims=True)
+    if encoding in ("hashgrid", "tiledgrid"):
+        assert tfn.gridtype == jfn.gridtype == encoding[:4].replace(
+            "tile", "tiled")
+        emb = rng.uniform(-0.1, 0.1, (tfn.table_size, 2)).astype(np.float32)
+        got, ref = tfn(_t(emb), _t(x)), jfn(jnp.asarray(emb), jnp.asarray(x))
+    else:
+        got, ref = tfn(_t(x)), jfn(jnp.asarray(x))
+    assert got.shape == (64, out_dim)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+    with pytest.raises(NotImplementedError, match="Unknown encoding"):
+        tenc.get_encoder("fourier")
+    with pytest.raises(ValueError, match="gridtype"):
+        TSpec(gridtype="dense")
+
+
+@pytest.mark.parametrize("degree", range(1, 9))
+def test_sh_encode_matches_jax(degree):
+    """(f) Real spherical harmonics, degrees 1-8, 1e-5."""
+    rng = np.random.default_rng(degree)
+    d = rng.normal(size=(256, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    got = tenc.sh_encode(_t(d), degree)
+    assert got.shape == (256, tenc.sh_output_dim(degree))
+    assert tenc.sh_output_dim(degree) == jenc.sh_output_dim(degree)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(jenc.sh_encode(jnp.asarray(d),
+                                                         degree)), atol=1e-5)
+    with pytest.raises(ValueError, match="degree"):
+        tenc.sh_encode(_t(d), 9)

@@ -246,7 +246,8 @@ def test_fused_composite_matches_jax(K):
 def _grid_specs():
     kw = dict(input_dim=3, num_levels=16, level_dim=2, base_resolution=16,
               log2_hashmap_size=16, desired_resolution=2048)
-    return JSpec(scatter_impl="xla", gridtype="tiled", **kw), TSpec(**kw)
+    return (JSpec(scatter_impl="xla", gridtype="tiled", **kw),
+            TSpec(gridtype="tiled", **kw))
 
 
 def test_grid_encoder_forward_and_table_grad_match_jax():
@@ -291,7 +292,7 @@ def test_corner_index_matches_jax_uint32():
     for log2_size in (14, 19):
         kw = dict(num_levels=16, log2_hashmap_size=log2_size,
                   desired_resolution=2048)
-        js, ts_ = JSpec(gridtype="tiled", **kw), TSpec(**kw)
+        js, ts_ = JSpec(gridtype="tiled", **kw), TSpec(gridtype="tiled", **kw)
         for lvl in (0, 5, 15):
             a = ts_._corner_index_fn(lvl)(torch.from_numpy(coords))
             b = js._corner_index_fn(lvl)(jnp.asarray(coords.astype(np.uint32)))

@@ -134,19 +134,23 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     from dreamfusion_torch.ops import fused_composite as fc
     from dreamfusion_torch.ops import probe
     from dreamfusion_torch.ops import scatter_wide as sw
-    from dreamfusion_torch.ops.grid_encoder import (GridEncoderSpec,
-                                                    _level_consts,
-                                                    grid_encoder_bwd_cuda)
+    from dreamfusion_torch.ops.grid_encoder import (
+        GridEncoderSpec, _level_consts, grid_encoder_bwd_cuda,
+        grid_encoder_bwd_rows_cuda)
 
     x = torch.zeros(4, 8)
     with pytest.raises(ValueError, match="CUDA"):
         fc.composite_fwd_cuda(x, torch.zeros(4, 8, 3), x, x, 1e-4)
-    spec = GridEncoderSpec(log2_hashmap_size=12)
+    spec = GridEncoderSpec(log2_hashmap_size=12, gridtype="tiled")
     consts = _level_consts(spec, torch.device("cpu"))
     with pytest.raises(ValueError, match="CUDA"):
         grid_encoder_bwd_cuda(torch.zeros(16, 4, dtype=torch.int32),
                               torch.zeros(16, 8, 4), torch.zeros(4, 16, 2),
                               consts)
+    with pytest.raises(ValueError, match="CUDA"):
+        grid_encoder_bwd_rows_cuda(torch.zeros(16, 8, 4, dtype=torch.int32),
+                                   torch.zeros(16, 8, 4),
+                                   torch.zeros(4, 16, 2), 64)
     q = torch.zeros(1, 64, 1, 8, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
         fa.attention_fwd_cuda(q, q, q, 0.5)
