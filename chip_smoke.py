@@ -59,7 +59,9 @@ Phases:
            phase's inputs and at a 4-level spec; the compositor at N = 4,096 rays with K in
            {32, 128} and the main path's K; flash attention at the UNet's
            and the VAE's 4,096-token self-attention, the VAE's with its
-           backward; the eval's row scatter at the compact budgets its
+           backward (each shape an entry of the kernels line, with its
+           achieved TFLOP/s beside scaled_dot_product_attention's); the
+           eval's row scatter at the compact budgets its
            groups used and its probe gather at the frame's classify
            probes), with times for kernel, plain version and, where one
            exists, one library call computing the same function (CUDA
@@ -68,7 +70,8 @@ Phases:
            those two are checked only after the eval phase, at its inputs);
   profile  (not in the default run) torch.profiler over 3 more steps and
            one eval frame of the train phase's trainer and of the edit
-           phase's: device time per span and per kernel, busy share.
+           phase's: device time per span and per kernel, busy share, and
+           the device time of each of the port's own kernels.
 
 Output: human-readable lines, then a {"kernels": [...]} JSON line, the
 card's name and power limit from nvidia-smi, and last
@@ -193,7 +196,7 @@ def phase_build():
     for name, s in secs.items():
         log(f"[build] {name}: {s:.1f} s")
         for line in kcuda.build_log.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
     log(f"[build] all kernels built in {time.perf_counter() - t0:.1f} s")
 
@@ -958,7 +961,10 @@ def check_composite(N, K, gen, device, timed: bool):
 
 def check_attention(B, N, H, D, gen, device, grad: bool):
     """Flash-attention kernels against attention_plain (f32 scores and
-    softmax) at one of the main path's shapes, bf16 inputs."""
+    softmax) at one of the main path's shapes, bf16 inputs; times beside
+    scaled_dot_product_attention on the same inputs (the port never calls
+    it), with the achieved TFLOP/s of the operations the function needs
+    (4 N^2 D a head forward, 10 N^2 D backward)."""
     from dreamfusion_torch.ops import flash_attention as fa
 
     scale = 1.0 / math.sqrt(D)
@@ -979,8 +985,9 @@ def check_attention(B, N, H, D, gen, device, grad: bool):
         f"{tol_f:.3e})")
     if not e_f <= tol_f:
         raise AssertionError(f"attention_fwd disagrees with its plain version ({label})")
+    flops = 4 * B * H * N * N * D
     nbytes = 4 * B * N * H * D * 2 + B * H * N * 4
-    fb, fby = bound(nbytes, 4 * B * H * N * N * D, H100_BF16_FLOPS)
+    fb, fby = bound(nbytes, flops, H100_BF16_FLOPS)
     res = {"fwd": {
         "max_abs_err": e_f,
         "ms": cuda_ms(lambda: fa.attention_fwd_cuda(q, k, v, scale)),
@@ -1011,8 +1018,8 @@ def check_attention(B, N, H, D, gen, device, grad: bool):
             ql.transpose(1, 2), kl.transpose(1, 2), vl.transpose(1, 2),
             scale=scale)
         g_lib = do.transpose(1, 2)
-        bb, bby = bound(8 * B * N * H * D * 2 + B * H * N * 4,
-                        10 * B * H * N * N * D, H100_BF16_FLOPS)
+        bb, bby = bound(8 * B * N * H * D * 2 + B * H * N * 4, 2.5 * flops,
+                        H100_BF16_FLOPS)
         res["bwd"] = {
             "max_abs_err": e_b,
             "ms": cuda_ms(lambda: fa.attention_bwd_cuda(q, k, v, o, lse, do,
@@ -1023,10 +1030,14 @@ def check_attention(B, N, H, D, gen, device, grad: bool):
             "library_ms": cuda_ms(lambda: torch.autograd.grad(
                 lib_o, (ql, kl, vl), g_lib, retain_graph=True))}
     for key, r in res.items():
-        log(f"[kernels] attention_{key} {label}: kernel {r['ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.4f} ms, scaled_dot_product_attention "
-            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})")
+        f = flops * (2.5 if key == "bwd" else 1)
+        r["shape"] = label
+        log(f"[kernels] attention_{key} {label}: kernel {r['ms']:.4f} ms "
+            f"({f / r['ms'] / 1e9:.1f} TFLOP/s), plain {r['plain_ms']:.4f} "
+            f"ms, scaled_dot_product_attention {r['library_ms']:.4f} ms "
+            f"({f / r['library_ms'] / 1e9:.1f} TFLOP/s), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}; "
+            f"{r['bound_ms'] / r['ms']:.3f} of it)")
     return res
 
 
@@ -1141,6 +1152,7 @@ def phase_kernels(trainer, counts, captured=None):
     results = [("grid_encoder_bwd", a), ("grid_encoder_bwd_rows", e),
                ("composite_fwd", bf),
                ("composite_bwd", bb), ("attention_fwd", unet_attn["fwd"]),
+               ("attention_fwd", vae_attn["fwd"]),
                ("attention_bwd", vae_attn["bwd"])]
     # the eval's kernels at the inputs its frame gave them: C at every
     # compact budget the groups used (timed at the most used), D at the
@@ -1207,6 +1219,37 @@ def _profiled(fn, reps: int, label: str, spans):
             f"{e.count // reps:<5d} {e.key[:90]}")
     log(f"[profile] kernel launches per {label}: "
         f"{sum(e.count for e in kernels) // reps}")
+    # the port's own kernels: the __global__ functions of its sources
+    own, by_src = [], {}
+    sources = _own_kernels()
+    for e in kernels:
+        key = e.key.removeprefix("void ")
+        name = key.split("::", 1)[-1].split("(")[0]
+        src = sources.get(name.split("<")[0])
+        if key.startswith("(anonymous namespace)::") and src:
+            own.append((e, name))
+            by_src[src] = by_src.get(src, 0.0) + dev_self(e) / reps
+    own.sort(key=lambda en: -dev_self(en[0]))
+    log(f"[profile] hand-written kernels {sum(by_src.values()):.3f} ms/{label} ("
+        + ", ".join(f"{src} {ms:.3f}" for src, ms in by_src.items()) + "): "
+        + ", ".join(f"{name} {dev_self(e) / reps:.3f} x{e.count / reps:.3g}"
+                    for e, name in own))
+
+
+def _own_kernels():
+    """{name of a __global__ function: its source} over the port's CUDA
+    sources (dreamfusion_torch/csrc)."""
+    import re
+
+    from dreamfusion_torch.ops import cuda as kcuda
+
+    found = {}
+    for src in sorted(set(kcuda.SOURCES.values())):
+        text = (kcuda.CSRC_DIR / src).read_text()
+        for name in re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                               r"\s*)?(\w+)\s*\(", text):
+            found[name] = src
+    return found
 
 
 def phase_profile(trainers, steps: int = 3):

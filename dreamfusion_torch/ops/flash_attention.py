@@ -9,6 +9,13 @@ kernels of csrc/flash_attention.cu (``attention_fwd``, and
 ``attention_bwd`` when autograd asks for the gradient); on a CPU tensor it
 runs ``attention_plain``, which autograd differentiates and which is also
 what the kernels are held against on the card.
+
+The forward takes the fused kernel for heads up to ``NARROW_HEAD_DIM``
+wide (the UNet's 40) and the materialized schedule (S, row softmax, P V on
+one wgmma GEMM) for wider ones (the VAE's 512); the backward is
+materialized at every width. Their [pairs, N, Np] scratch is allocated
+here, and the (b, h) pairs are walked in chunks that keep it under
+``SCRATCH_BYTES``.
 """
 
 from __future__ import annotations
@@ -34,18 +41,42 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # -- kernel wrappers -----------------------------------------------------------
 
+NARROW_HEAD_DIM = 64    # widest head of the fused forward kernel
+# scratch of the materialized schedule (wide forward: S f32 + P bf16;
+# backward: P + dS bf16, each [pairs, N, Np]) is kept under this many bytes
+SCRATCH_BYTES = 256 * 2 ** 20
+
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def _lib():
     lib = cuda.library("flash_attention")
     if not getattr(lib, "_typed", False):
-        lib.attention_fwd.argtypes = [_VP] * 5 + [_I] * 4 + [_F, _VP]
+        lib.attention_fwd.argtypes = [_VP] * 7 + [_I] * 7 + [_F, _VP]
         lib.attention_fwd.restype = _I
-        lib.attention_bwd.argtypes = [_VP] * 10 + [_I] * 4 + [_F, _VP]
+        lib.attention_bwd_delta.argtypes = [_VP] * 3 + [_I] * 4 + [_VP]
+        lib.attention_bwd_delta.restype = _I
+        lib.attention_bwd.argtypes = [_VP] * 11 + [_I] * 7 + [_F, _VP]
         lib.attention_bwd.restype = _I
         lib._typed = True
     return lib
+
+
+def scratch_cols(N: int) -> int:
+    """Row length Np of the [pairs, N, Np] scratch: N rounded up to 8, so
+    that each row is a multiple of 16 bytes in bf16 (a TMA stride)."""
+    return -(-N // 8) * 8
+
+
+def scratch_chunks(B: int, H: int, N: int, bytes_per_entry: int,
+                   budget: int):
+    """(pairs a chunk, [(first pair, pairs), ...]) for walking the B * H
+    (b, h) pairs with at most `budget` bytes of [pairs, N, Np] scratch
+    (bytes_per_entry per entry; at least one pair a chunk)."""
+    pairs = B * H
+    per_pair = N * scratch_cols(N) * bytes_per_entry
+    chunk = max(1, min(pairs, budget // max(per_pair, 1)))
+    return chunk, [(p0, min(chunk, pairs - p0)) for p0 in range(0, pairs, chunk)]
 
 
 def _check_inputs(q, k, v):
@@ -54,38 +85,63 @@ def _check_inputs(q, k, v):
     B, N, H, D = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
         cuda.require(t, name, torch.bfloat16, (B, N, H, D), q.device)
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"head width {D} > {MAX_HEAD_DIM}")
+    if D > MAX_HEAD_DIM or D % 8:
+        raise ValueError(f"head width {D}: the kernels take multiples of 8 up "
+                         f"to {MAX_HEAD_DIM} (TMA strides are multiples of "
+                         f"16 bytes)")
     return B, N, H, D
 
 
 def attention_fwd_cuda(q, k, v, scale: float):
-    """Forward kernel -> (o [B, N, H, D] bf16, lse [B, H, N] f32, base 2)."""
+    """Forward kernels -> (o [B, N, H, D] bf16, lse [B, H, N] f32, base 2).
+    Heads up to NARROW_HEAD_DIM wide take the fused kernel in one launch;
+    wider heads the materialized schedule, (b, h) pairs in chunks."""
     B, N, H, D = _check_inputs(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty(B, H, N, device=q.device, dtype=torch.float32)
-    err = _lib().attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               o.data_ptr(), lse.data_ptr(), B, N, H, D,
-                               float(scale), cuda.stream_ptr(q.device))
-    cuda.check_launch(err, "attention_fwd")
+    Np = scratch_cols(N)
+    if D <= NARROW_HEAD_DIM:
+        chunks, s_ptr, p_ptr = [(0, B * H)], None, None
+    else:
+        chunk, chunks = scratch_chunks(B, H, N, 4 + 2, SCRATCH_BYTES)
+        S = torch.empty(chunk, N, Np, device=q.device, dtype=torch.float32)
+        P = torch.empty(chunk, N, Np, device=q.device, dtype=torch.bfloat16)
+        s_ptr, p_ptr = S.data_ptr(), P.data_ptr()
+    lib, stream = _lib(), cuda.stream_ptr(q.device)
+    for p0, n in chunks:
+        err = lib.attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                o.data_ptr(), lse.data_ptr(), s_ptr, p_ptr,
+                                B, N, H, D, Np, p0, n, float(scale), stream)
+        cuda.check_launch(err, "attention_fwd")
     cuda.launch_counts["attention_fwd"] += 1
     return o, lse
 
 
 def attention_bwd_cuda(q, k, v, o, lse, do, scale: float):
-    """Backward kernels -> (dq, dk, dv), each [B, N, H, D] bf16."""
+    """Backward kernels -> (dq, dk, dv), each [B, N, H, D] bf16: delta,
+    then the five products of the materialized schedule, (b, h) pairs in
+    chunks."""
     B, N, H, D = _check_inputs(q, k, v)
     cuda.require(o, "o", torch.bfloat16, (B, N, H, D), q.device)
     cuda.require(do, "do", torch.bfloat16, (B, N, H, D), q.device)
     cuda.require(lse, "lse", torch.float32, (B, H, N), q.device)
     delta = torch.empty_like(lse)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    err = _lib().attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                               delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                               dv.data_ptr(), B, N, H, D, float(scale),
-                               cuda.stream_ptr(q.device))
+    Np = scratch_cols(N)
+    chunk, chunks = scratch_chunks(B, H, N, 2 + 2, SCRATCH_BYTES)
+    P, dS = (torch.empty(chunk, N, Np, device=q.device, dtype=torch.bfloat16)
+             for _ in range(2))
+    lib, stream = _lib(), cuda.stream_ptr(q.device)
+    err = lib.attention_bwd_delta(o.data_ptr(), do.data_ptr(), delta.data_ptr(),
+                                  B, N, H, D, stream)
     cuda.check_launch(err, "attention_bwd")
+    for p0, n in chunks:
+        err = lib.attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                                P.data_ptr(), dS.data_ptr(), dq.data_ptr(),
+                                dk.data_ptr(), dv.data_ptr(), B, N, H, D, Np,
+                                p0, n, float(scale), stream)
+        cuda.check_launch(err, "attention_bwd")
     cuda.launch_counts["attention_bwd"] += 1
     return dq, dk, dv
 

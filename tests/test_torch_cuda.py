@@ -106,11 +106,14 @@ def test_fused_composite_kernels_match_plain(dev, K):
 
 
 @pytest.mark.parametrize("B,N,H,D", [(2, 4096, 8, 40), (1, 4096, 1, 512),
-                                     (1, 200, 2, 40)])
+                                     (1, 200, 2, 40), (1, 200, 1, 512),
+                                     (1, 4096, 2, 64), (2, 1024, 3, 24)])
 def test_flash_attention_kernels_match_plain(dev, B, N, H, D):
     """attention_fwd / attention_bwd vs attention_plain (f32 scores and
     softmax) on bf16 inputs: bf16 outputs, and P and dS enter the products
-    in bf16, so 1e-2 (values) and 2e-2 (gradients) of the largest entry."""
+    in bf16, so 1e-2 (values) and 2e-2 (gradients) of the largest entry.
+    The main path's UNet and VAE shapes, ragged tiles of both forms, the
+    narrow form's widest head (64) and a head below one 16-deep step."""
     from dreamfusion_torch.ops import cuda as kcuda
     from dreamfusion_torch.ops import flash_attention as fa
 
@@ -130,6 +133,30 @@ def test_flash_attention_kernels_match_plain(dev, B, N, H, D):
     assert (out.float() - ref).abs().max() <= 1e-2 * ref.abs().max()
     for a, b in zip(grads, refs):
         assert (a.float() - b).abs().max() <= 2e-2 * b.abs().max()
+
+
+@pytest.mark.parametrize("B,N,H,D", [(1, 300, 5, 80), (2, 130, 3, 24)])
+def test_flash_attention_scratch_chunks_match_one_pass(dev, monkeypatch, B,
+                                                       N, H, D):
+    """The wrappers' walk over (b, h) pairs in chunks of scratch gives the
+    same bits as one pass: each pair's products do not depend on the
+    chunk."""
+    from dreamfusion_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(B * N)
+    q, k, v, do = (torch.randn(B, N, H, D, device=dev, generator=g)
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = 1.0 / math.sqrt(D)
+    small = 2 * N * fa.scratch_cols(N) * 6    # two pairs a chunk, either pass
+    o, lse = fa.attention_fwd_cuda(q, k, v, scale)
+    grads = fa.attention_bwd_cuda(q, k, v, o, lse, do, scale)
+    monkeypatch.setattr(fa, "SCRATCH_BYTES", small)
+    o2, lse2 = fa.attention_fwd_cuda(q, k, v, scale)
+    grads2 = fa.attention_bwd_cuda(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    assert len(fa.scratch_chunks(B, H, N, 4, small)[1]) > 1
+    for a, b in zip((o, lse, *grads), (o2, lse2, *grads2)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("T,J", [(32768, 20_001), (65536, 4096 * 32),
