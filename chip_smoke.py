@@ -55,9 +55,12 @@ Phases:
   kernels  each kernel against its plain PyTorch version on the card at the
            main paths' shapes (grid-encoder scatter at the dense and the
            compacted steps' sample counts and all 16 level sizes, plus a
-           4,096-row level; the hash grid's row scatter at the hashgrid
-           phase's inputs and at a 4-level spec; the compositor at N = 4,096 rays with K in
-           {32, 128} and the main path's K; flash attention at the UNet's
+           4,096-row level, each an entry of the kernels line, with the
+           mean distinct rows per 32-sample warp at each level; the hash
+           grid's row scatter at the
+           hashgrid phase's inputs and at a 4-level spec; the compositor at
+           N = 4,096 rays with every K of the trainer's ladder up to grid_K,
+           timed at the main path's K; flash attention at the UNet's
            and the VAE's 4,096-token self-attention, the VAE's with its
            backward (each shape an entry of the kernels line, with its
            achieved TFLOP/s beside scaled_dot_product_attention's); the
@@ -112,6 +115,8 @@ REPLACES = {
     "scatter_add_wide": "dreamfusion_tpu/ops/pallas_scatter.py:735",
     "probe_select_small": "dreamfusion_tpu/ops/pallas_probe.py:72",
 }
+# kernel A at a level of 4,096 rows stands in for K1b, matmul_scatter_add_oct
+K1B_REPLACES = "dreamfusion_tpu/ops/pallas_scatter.py:645"
 SOURCES = {
     "grid_encoder_bwd": "dreamfusion_torch/csrc/grid_encoder_bwd.cu",
     "grid_encoder_bwd_rows": "dreamfusion_torch/csrc/grid_encoder_bwd.cu",
@@ -817,7 +822,8 @@ def _real_positions(trainer, dense: bool = False):
 def check_grid_encoder(spec, x, valid, label, gen, timed: bool):
     """Kernel A against its plain version on positions x; samples that are
     not valid (past a ray's last sample) get a zero cotangent, as in the
-    train step, and the kernel skips them."""
+    train step, and the kernel skips them. Returns the entry's numbers and
+    the kernel's inputs."""
     from dreamfusion_torch.ops import grid_encoder as ge
 
     consts = ge._level_consts(spec, x.device)
@@ -835,13 +841,15 @@ def check_grid_encoder(spec, x, valid, label, gen, timed: bool):
     err = float((d_k - d_p).abs().max())
     tol = 2e-5 * float(d_p.abs().max())
     log(f"[kernels] A grid_encoder_bwd {label}: L={L} J={J:,} (valid "
-        f"{n_live:,}) T={consts.total:,} "
-        f"max_abs_err {err:.3e} (tol {tol:.3e})")
+        f"{n_live:,}) T={consts.total:,}; max_abs_err {err:.3e} (tol {tol:.3e})")
     if not err <= tol:
         raise AssertionError(f"kernel A disagrees with index_add_ ({label})")
+    inputs = (base, w, cot, consts)
     if not timed:
-        return None
-    ms = cuda_ms(lambda: ge.grid_encoder_bwd_cuda(base, w, cot, consts))
+        return None, inputs
+    kernel = lambda: ge.grid_encoder_bwd_cuda(base, w, cot, consts)  # noqa: E731
+    ms = cuda_ms(kernel)
+    dev_ms = device_ms(kernel)
     plain_ms = cuda_ms(lambda: ge.grid_encoder_bwd_plain(base, w, cot, consts),
                        reps=5)
     rows = torch.cat([ge._corner_rows(consts, base, l) for l in range(L)])
@@ -852,11 +860,37 @@ def check_grid_encoder(spec, x, valid, label, gen, timed: bool):
     # every cotangent is read; rows and weights only for valid samples
     nbytes = L * J * 8 + L * n_live * (4 + 32) + consts.total * 2 * 4
     b_ms, b_by = bound(nbytes, L * n_live * 32)
-    log(f"[kernels] A times ({label}): kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+    log(f"[kernels] A times ({label}): kernel {ms:.4f} ms ({b_ms / ms:.3f} "
+        f"of its bound; device time {dev_ms:.4f} ms, the table's zeroing "
+        f"included), plain {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms "
+        f"(kernel / index_add_ {ms / lib_ms:.3f}), bound {b_ms:.4f} ms "
         f"({b_by})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    return ({"shape": f"{label}: L={L} J={J} T={consts.total}",
+             "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": lib_ms}, inputs)
+
+
+def grid_encoder_aggregation(base, cot):
+    """Per level, over the 32-sample warps with a live sample: the mean
+    number of distinct corner-0 rows (match groups) and of contiguous runs
+    of one row (the updates kernel A issues per corner) among the live
+    lanes."""
+    L, J = base.shape
+    pad = -J % 32
+    live = torch.nn.functional.pad(cot.abs().sum(-1).t() > 0, (0, pad))
+    key = torch.nn.functional.pad(base.long(), (0, pad))
+    key = torch.where(live, key, -1).reshape(L, -1, 32)
+    live = live.reshape(L, -1, 32)
+    warps = live.any(-1)                                      # [L, W]
+    srt = key.sort(-1).values
+    distinct = ((srt[..., 1:] != srt[..., :-1]) & (srt[..., 1:] >= 0)).sum(-1) \
+        + (srt[..., 0] >= 0)
+    runs = ((key[..., 1:] != key[..., :-1]) & live[..., 1:]).sum(-1) \
+        + live[..., 0]
+    n = warps.sum(-1).clamp_min(1)
+    return ((distinct * warps).sum(-1) / n).tolist(), \
+        ((runs * warps).sum(-1) / n).tolist()
 
 
 def check_grid_encoder_rows(spec, x, label, gen, timed: bool):
@@ -944,16 +978,21 @@ def check_composite(N, K, gen, device, timed: bool):
         raise AssertionError(f"kernel B disagrees with its plain version (K={K})")
     if not timed:
         return None
-    f_ms = cuda_ms(lambda: fc.composite_fwd_cuda(sig, rgb, dt, ts, T))
+    fwd = lambda: fc.composite_fwd_cuda(sig, rgb, dt, ts, T)  # noqa: E731
+    f_ms = cuda_ms(fwd)
+    f_dev = device_ms(fwd)
     f_plain = cuda_ms(lambda: fc.composite_fwd_plain(sig, rgb, dt, ts, T))
     b_ms = cuda_ms(lambda: fc.composite_bwd_cuda(sig, rgb, dt, ts, gws, gd, gc, T))
     b_plain = cuda_ms(lambda: fc.composite_bwd_plain(sig, rgb, dt, ts, gws, gd,
                                                      gc, T))
     fb, fby = bound(live * 24 + N * 20, live * 14)
     bb, bby = bound(live * 24 + N * 20 + N * K * 16, live * 40)
-    log(f"[kernels] B-fwd {f_ms:.4f} ms (plain {f_plain:.4f}, bound {fb:.5f} "
-        f"{fby}); B-bwd {b_ms:.4f} ms (plain {b_plain:.4f}, bound {bb:.5f} {bby})")
-    return ({"max_abs_err": e_f, "ms": f_ms, "plain_ms": f_plain,
+    log(f"[kernels] B-fwd {f_ms:.4f} ms by CUDA events over 20 launches, "
+        f"{f_dev:.4f} ms of device time (torch.profiler) (plain "
+        f"{f_plain:.4f}, bound {fb:.5f} {fby}); B-bwd {b_ms:.4f} ms (plain "
+        f"{b_plain:.4f}, bound {bb:.5f} {bby})")
+    return ({"max_abs_err": e_f, "ms": f_ms, "device_ms": f_dev,
+             "plain_ms": f_plain,
              "bound_ms": fb, "bound_by": fby, "library_ms": None},
             {"max_abs_err": e_b, "ms": b_ms, "plain_ms": b_plain,
              "bound_ms": bb, "bound_by": bby, "library_ms": None})
@@ -1108,6 +1147,7 @@ def phase_kernels(trainer, counts, captured=None):
     "eval") to its launch counts: an entry gives them per path and their
     sum."""
     from dreamfusion_torch.ops.grid_encoder import GridEncoderSpec
+    from dreamfusion_torch.training.trainer import K_LADDER
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -1126,13 +1166,21 @@ def phase_kernels(trainer, counts, captured=None):
     sizes = spec.geometry[2]
     log(f"[kernels] main-path budgets K={K} M={M}; level sizes {sizes}")
     # steps 0-15 query all N x K samples, later steps the compacted M
-    a = check_grid_encoder(spec, x_dense, valid_dense, "dense steps", gen,
-                           timed=True)
-    check_grid_encoder(spec, x, valid, "compacted steps", gen, timed=True)
+    a_dense, _ = check_grid_encoder(spec, x_dense, valid_dense,
+                                    "dense steps", gen, timed=True)
+    a_comp, (base, w, cot, consts) = check_grid_encoder(
+        spec, x, valid, "compacted steps", gen, timed=True)
+    distinct, runs = grid_encoder_aggregation(base, cot)
+    log("[kernels] A compacted steps, per level: mean distinct rows / runs "
+        "of one row among a 32-sample warp's live lanes: " + ", ".join(
+            f"{l}: {d:.2f} / {r:.2f}" for l, (d, r) in
+            enumerate(zip(distinct, runs))))
     k1b = GridEncoderSpec(num_levels=1, level_dim=2, base_resolution=15,
                           log2_hashmap_size=16, gridtype="tiled")
     assert k1b.table_size == 4096
-    check_grid_encoder(k1b, x, valid, "T=4096 (the K1b row)", gen, timed=True)
+    a_k1b, _ = check_grid_encoder(k1b, x, valid, "T=4096 (the K1b row)",
+                                  gen, timed=True)
+    a_k1b["replaces"] = K1B_REPLACES
     # kernel E at the hashgrid phase's inputs, and at a 4-level hash spec
     # whose tables are tiny (many updates per row)
     h_spec, _, h_x, _ = _hashgrid_inputs(dev)
@@ -1142,14 +1190,18 @@ def phase_kernels(trainer, counts, captured=None):
                             log2_hashmap_size=9, gridtype="hash")
     check_grid_encoder_rows(small, h_x[:65536], "4 levels of <= 512 rows",
                             gen, timed=False)
-    for k in sorted({32, 128} - {K}):
-        check_composite(4096, k, gen, dev, timed=False)
+    # every K of the trainer's ladder up to the main path's grid_K
+    grid_K = trainer.cfg.grid_K if trainer is not None else 128
+    for k in K_LADDER:
+        if k <= grid_K and k != K:
+            check_composite(4096, k, gen, dev, timed=False)
     bf, bb = check_composite(4096, K, gen, dev, timed=True)
     # the UNet's self-attention over 64x64 latents (CFG batch 2, 8 heads of
     # 40, no gradient) and the VAE mid-block's (1 head of 512, gradient)
     unet_attn = check_attention(2, 4096, 8, 40, gen, dev, grad=False)
     vae_attn = check_attention(1, 4096, 1, 512, gen, dev, grad=True)
-    results = [("grid_encoder_bwd", a), ("grid_encoder_bwd_rows", e),
+    results = [("grid_encoder_bwd", a_dense), ("grid_encoder_bwd", a_comp),
+               ("grid_encoder_bwd", a_k1b), ("grid_encoder_bwd_rows", e),
                ("composite_fwd", bf),
                ("composite_bwd", bb), ("attention_fwd", unet_attn["fwd"]),
                ("attention_fwd", vae_attn["fwd"]),
@@ -1168,13 +1220,18 @@ def phase_kernels(trainer, counts, captured=None):
             c = c or r
         results += [("scatter_add_wide", c),
                     ("probe_select_small", check_probe(*captured["D"]))]
-    entries = []
+    # launches are counted per wrapper, so each entry of a name carries the
+    # name's count; the entries after its first are other shapes of the
+    # same kernel, marked shape_variant, and a sum over the line skips them
+    entries, seen = [], set()
     for name, res in results:
         per_path = {f"launches_{path}": n.get(name, 0)
                     for path, n in counts.items()}
         entries.append({"name": name, "route": "cuda", "source": SOURCES[name],
                         "replaces": REPLACES[name],
-                        "launches": sum(per_path.values()), **per_path, **res})
+                        "launches": sum(per_path.values()), **per_path,
+                        "shape_variant": name in seen, **res})
+        seen.add(name)
     return entries
 
 

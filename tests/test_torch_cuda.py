@@ -45,6 +45,66 @@ def test_grid_encoder_bwd_kernel_matches_index_add(dev):
     assert (d_k - d_p).abs().max() <= 1e-5 * d_p.abs().max()
 
 
+def _ray_positions(R, K, seed, dev):
+    """R straight rays on the renderer's lattice (step 2 sqrt(3) / 512),
+    K samples each, ray after ray: at the coarse levels some 20 consecutive
+    samples share a cell, so their updates land on the same rows."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    o = torch.rand(R, 1, 3, device=dev, generator=g) * 1.2 - 0.6
+    d = torch.nn.functional.normalize(
+        torch.randn(R, 1, 3, device=dev, generator=g), dim=-1)
+    t = torch.arange(K, device=dev)[None, :, None] * (2 * math.sqrt(3) / 512)
+    return (o + d * t).clamp(-1.0, 1.0).reshape(-1, 3)
+
+
+_TILED = dict(level_dim=2, gridtype="tiled")
+
+
+_MAIN = dict(num_levels=16, base_resolution=16, log2_hashmap_size=16,
+             desired_resolution=2048)
+
+
+@pytest.mark.parametrize("spec_kw,zero_cot", [
+    (_MAIN, False),
+    (dict(num_levels=4, base_resolution=8, per_level_scale=1.5,
+          log2_hashmap_size=12), False),
+    (dict(num_levels=3, base_resolution=64, log2_hashmap_size=19), False),
+    (dict(num_levels=1, base_resolution=15, log2_hashmap_size=16), False),
+    (_MAIN, True)],
+    ids=["rays, main spec", "small levels only (at most 4,096 rows)",
+         "large levels only (at least 274,632 rows)",
+         "K1b level of 4,096 rows", "all-zero cotangent"])
+def test_grid_encoder_bwd_kernel_on_rays(dev, spec_kw, zero_cot):
+    """Kernel A vs index_add_ on ray-ordered samples (2,000 rays of 128
+    samples, a dead tail on every ray), on the main spec, on specs of small
+    levels only (many lanes of a warp on one cell) and of large levels only
+    (few), and on one level of 4,096 rows. Atomics sum in another order:
+    2e-5 of the largest entry (an all-zero cotangent gives an all-zero
+    gradient exactly)."""
+    from dreamfusion_torch.ops import cuda as kcuda
+    from dreamfusion_torch.ops import grid_encoder as ge
+
+    spec = ge.GridEncoderSpec(**spec_kw, **_TILED)
+    consts = ge._level_consts(spec, dev)
+    R, K = 2000, 128
+    x = _ray_positions(R, K, 7, dev)
+    base, w, _ = spec.residuals(x)
+    g = torch.Generator(device=dev).manual_seed(8)
+    cot = torch.randn(R * K, spec.num_levels, 2, device=dev, generator=g)
+    n_live = torch.randint(1, K + 1, (R, 1), device=dev, generator=g)
+    live = (torch.arange(K, device=dev)[None] < n_live).reshape(-1)
+    cot = cot * live[:, None, None] * (0.0 if zero_cot else 1.0)
+    n0 = kcuda.launch_counts["grid_encoder_bwd"]
+    d_k = ge.grid_encoder_bwd(base, w, cot, consts)
+    assert kcuda.launch_counts["grid_encoder_bwd"] == n0 + 1
+    d_p = ge.grid_encoder_bwd_plain(base, w, cot, consts)
+    torch.cuda.synchronize()
+    if zero_cot:
+        assert not d_k.any()
+    else:
+        assert (d_k - d_p).abs().max() <= 2e-5 * d_p.abs().max()
+
+
 @pytest.mark.parametrize("spec_kw,B", [
     (dict(), 100_000),
     (dict(num_levels=4, base_resolution=8, per_level_scale=1.5,
@@ -103,6 +163,109 @@ def test_fused_composite_kernels_match_plain(dev, K):
     out = fc.composite_fused(s, rgb, dt, ts, T)
     out.rgb.sum().backward()
     assert torch.isfinite(s.grad).all()
+
+
+def _composite_rays(N, K, seed, dev):
+    """Rays on the 512-step lattice in four kinds, by n % 4: opaque at once
+    (T_thresh crossed in the first chunk of 32 samples), crossing in a
+    later chunk, all-zero sigma, and thin (never crossing); a dead tail of
+    sigma = delta = 0 on every ray."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt0 = 2 * math.sqrt(3) / 512
+    scale = torch.tensor([3000.0, 60.0, 0.0, 5.0], device=dev)
+    sig = torch.rand(N, K, device=dev, generator=g) \
+        * scale[torch.arange(N, device=dev) % 4][:, None]
+    n_live = torch.randint(1, K + 1, (N, 1), device=dev, generator=g)
+    live = (torch.arange(K, device=dev)[None] < n_live).float()
+    sig, dt = sig * live, torch.full((N, K), dt0, device=dev) * live
+    ts = torch.cumsum(dt, -1) + 0.3
+    rgb = torch.rand(N, K, 3, device=dev, generator=g)
+    grads = (torch.randn(N, device=dev, generator=g),
+             torch.randn(N, device=dev, generator=g),
+             torch.randn(N, 3, device=dev, generator=g))
+    return sig, rgb, dt, ts.contiguous(), grads
+
+
+@pytest.mark.parametrize("N", [1, 4096, 4097])
+@pytest.mark.parametrize("K", [1, 16, 32, 33, 48, 64, 96, 128, 192, 256])
+def test_fused_composite_kernels_every_K(dev, K, N):
+    """B-fwd (a warp per ray, chunks of 32 samples, ragged last chunk) and
+    B-bwd vs the plain formulas at every K of the trainer's ladder, K = 1
+    and 33, and N around a multiple of the forward's 8 rays a block; rays
+    that cross T_thresh = 1e-4 in the first chunk and in a later one, and
+    rays of zero sigma. fwd 1e-5, bwd 1e-4 of the largest entry."""
+    from dreamfusion_torch.ops import fused_composite as fc
+
+    T = 1e-4
+    sig, rgb, dt, ts, (gws, gd, gc) = _composite_rays(N, K, K * 7 + N, dev)
+    for a, b in zip(fc.composite_fwd_cuda(sig, rgb, dt, ts, T),
+                    fc.composite_fwd_plain(sig, rgb, dt, ts, T)):
+        assert (a - b).abs().max() <= 1e-5
+    for a, b in zip(fc.composite_bwd_cuda(sig, rgb, dt, ts, gws, gd, gc, T),
+                    fc.composite_bwd_plain(sig, rgb, dt, ts, gws, gd, gc, T)):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max().clamp_min(1e-30)
+    if N == 4096 and K >= 64:
+        trans = torch.exp(torch.cumsum(-sig * dt, -1))
+        first = (trans[:, :32] <= T).any(-1)
+        later = (trans <= T).any(-1) & ~first
+        assert first.any() and later.any() and (sig == 0).all(-1).any()
+
+
+def test_fused_composite_backward_mask_is_the_forwards(dev):
+    """A ray whose second sample sits where the running product and the
+    log-space form of T disagree about T_thresh: f0 = 1 - alpha_0 + 1e-15
+    with exp(log f0) > f0 on the card, T_thresh = f0. The log-space form
+    (the plain version, the JAX VJP and both kernels) keeps samples 1.. live;
+    the running product would drop them. Samples 1.. have sigma = 0, so the
+    log sum stays exactly log f0 and only the mask decides their
+    d_sigma."""
+    from dreamfusion_torch.ops import fused_composite as fc
+
+    dt0 = 2 * math.sqrt(3) / 512
+    s = torch.linspace(1300.0, 1400.0, 200_001, device=dev)
+    alpha = 1.0 - torch.exp(-s * dt0)
+    f0 = 1.0 - alpha + 1e-15
+    pick = torch.nonzero(torch.exp(torch.log(f0)) > f0)[0, 0]
+    T = float(f0[pick])
+    K = 40
+    sig = torch.zeros(1, K, device=dev)
+    sig[0, 0] = s[pick]
+    dt = torch.full((1, K), dt0, device=dev)
+    ts = torch.cumsum(dt, -1)
+    g = torch.Generator(device=dev).manual_seed(5)
+    rgb = torch.rand(1, K, 3, device=dev, generator=g)
+    gws, gd, gc = torch.ones(1, device=dev), torch.ones(1, device=dev), \
+        torch.ones(1, 3, device=dev)
+    ds_k, dr_k = fc.composite_bwd_cuda(sig, rgb, dt, ts, gws, gd, gc, T)
+    ds_p, dr_p = fc.composite_bwd_plain(sig, rgb, dt, ts, gws, gd, gc, T)
+    torch.cuda.synchronize()
+    assert (ds_p[0, 1:] != 0).all()                  # live by the log form
+    assert torch.equal(ds_k != 0, ds_p != 0)
+    assert (ds_k - ds_p).abs().max() <= 1e-4 * ds_p.abs().max()
+    for a, b in zip(fc.composite_fwd_cuda(sig, rgb, dt, ts, T),
+                    fc.composite_fwd_plain(sig, rgb, dt, ts, T)):
+        assert (a - b).abs().max() <= 1e-5
+
+
+def test_fused_composite_autograd_reaches_both_kernels(dev):
+    """composite_fused's forward launches B-fwd and its backward B-bwd."""
+    from dreamfusion_torch.ops import cuda as kcuda
+    from dreamfusion_torch.ops import fused_composite as fc
+
+    sig, rgb, dt, ts, _ = _composite_rays(4096, 128, 3, dev)
+    s = sig.clone().requires_grad_(True)
+    r = rgb.clone().requires_grad_(True)
+    n0 = dict(kcuda.launch_counts)
+    out = fc.composite_fused(s, r, dt, ts, 1e-4)
+    (out.rgb.sum() + out.weights_sum.sum() + out.depth.sum()).backward()
+    assert kcuda.launch_counts["composite_fwd"] == n0["composite_fwd"] + 1
+    assert kcuda.launch_counts["composite_bwd"] == n0["composite_bwd"] + 1
+    d_sig, d_rgb = fc.composite_bwd_plain(
+        sig, rgb, dt, ts, torch.ones(4096, device=dev),
+        torch.ones(4096, device=dev), torch.ones(4096, 3, device=dev), 1e-4)
+    torch.cuda.synchronize()
+    assert (s.grad - d_sig).abs().max() <= 1e-4 * d_sig.abs().max()
+    assert (r.grad - d_rgb).abs().max() <= 1e-4 * d_rgb.abs().max()
 
 
 @pytest.mark.parametrize("B,N,H,D", [(2, 4096, 8, 40), (1, 4096, 1, 512),

@@ -147,52 +147,105 @@ def test_composite_and_near_far_match_jax():
     np.testing.assert_allclose(_n(ft), np.asarray(fj), rtol=1e-5)
 
 
+def _warp_scan(x):
+    """Inclusive Hillis-Steele scan over the last axis (32 lanes) in
+    float32, in the order of the kernel's __shfl_up_sync steps."""
+    x = x.astype(np.float32)
+    for off in (1, 2, 4, 8, 16):
+        y = np.zeros_like(x)
+        y[..., off:] = x[..., :-off]
+        x = (x + y).astype(np.float32)
+    return x
+
+
+def _warp_sum(x):
+    """Butterfly sum over the last axis (32 lanes) by __shfl_xor_sync, in
+    float32; every lane ends with the total, lane 0's is returned."""
+    x = x.astype(np.float32)
+    lanes = np.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        x = (x + x[..., lanes ^ off]).astype(np.float32)
+    return x[..., 0]
+
+
 def _kernel_b_emulation(sig, rgb, dt, ts, g_ws, g_d, g_rgb, T_thresh):
-    """The algorithm of csrc/fused_composite.cu, vectorised over rays with a
-    sequential loop over samples: running-product forward with an early
-    break, re-walked live prefix, reverse walk with suffix sums and T from
-    the log sum. Holds the kernel's arithmetic to the JAX formulas here,
-    where no GPU can run it."""
+    """The algorithm of csrc/fused_composite.cu, vectorised over rays. The
+    forward: one warp per ray over chunks of 32 samples (lanes past K read
+    zeros), the inclusive shuffle scan of l = log(1 - alpha + 1e-15), T
+    from the exclusive scan plus the carry, the mask exp(log T) > T_thresh,
+    per-lane sums (rgb float p = lane + 32 r of a chunk is sample p // 3's
+    channel p % 3), the stop after a chunk that ends at T <= T_thresh, one
+    butterfly sum at the end. The backward: a sequential log sum whose
+    exp(log T) > T_thresh decides the live prefix, then the reverse walk
+    with suffix sums and T from the log sum. Holds the kernels' arithmetic
+    to the JAX formulas here, where no GPU can run them."""
     N, K = sig.shape
-    T = np.ones(N, np.float32)
-    logT = np.zeros(N, np.float32)
+    f32 = np.float32
+    one = f32(1)
+    lanes = np.arange(32)
+    acc = np.zeros((N, 5, 32), f32)       # w, w t, rgb by channel; per lane
+    carry = np.zeros(N, f32)
+    going = np.ones(N, bool)
+    for k0 in range(0, K, 32):
+        k = k0 + lanes
+        inside = k < K
+        kk = np.minimum(k, K - 1)
+        sg = np.where(inside, sig[:, kk], 0).astype(f32)
+        d = np.where(inside, dt[:, kk], 0).astype(f32)
+        t = np.where(inside, ts[:, kk], 0).astype(f32)
+        alpha = (one - np.exp(-sg * d)).astype(f32)
+        l = np.log((one - alpha + f32(1e-15)).astype(f32)).astype(f32)
+        incl = _warp_scan(l)
+        excl = np.concatenate([np.zeros((N, 1), f32), incl[:, :-1]], 1)
+        T = np.exp((carry[:, None] + excl).astype(f32)).astype(f32)
+        wk = np.where(T > f32(T_thresh), alpha * T, 0).astype(f32)
+        wk = np.where(going[:, None], wk, 0).astype(f32)
+        acc[:, 0] += wk
+        acc[:, 1] += wk * t
+        flat = rgb.reshape(N, 3 * K)
+        for r in range(3):
+            p = lanes + 32 * r
+            ok = p < 3 * (K - k0)
+            vals = np.where(ok, flat[:, np.minimum(3 * k0 + p, 3 * K - 1)], 0)
+            contrib = (wk[:, p // 3] * vals).astype(f32)
+            for ch in range(3):
+                acc[:, 2 + ch] += np.where((p % 3) == ch, contrib, 0).astype(f32)
+        carry = np.where(going, (carry + incl[:, 31]).astype(f32), carry)
+        going = going & (np.exp(carry) > f32(T_thresh))
+    sums = _warp_sum(acc)
+    ws, dep, col = sums[:, 0], sums[:, 1], sums[:, 2:]
+
+    # backward pass 1: the live prefix by the forward's log-space mask
+    logT = np.zeros(N, f32)
     live = np.zeros((N, K), bool)
-    ws = np.zeros(N, np.float32)
-    dep = np.zeros(N, np.float32)
-    col = np.zeros((N, 3), np.float32)
+    alive = np.ones(N, bool)
     for k in range(K):
-        alive = T > T_thresh
+        alive = alive & (np.exp(logT) > f32(T_thresh))
         live[:, k] = alive
-        alpha = np.float32(1) - np.exp(-sig[:, k] * dt[:, k])
-        w = np.where(alive, alpha * T, 0).astype(np.float32)
-        ws += w
-        dep += w * ts[:, k]
-        col += w[:, None] * rgb[:, k]
-        f = (np.float32(1) - alpha + np.float32(1e-15)).astype(np.float32)
-        T = np.where(alive, T * f, T)
-        logT = np.where(alive, logT + np.log(f), logT)
+        alpha = (one - np.exp(-sig[:, k] * dt[:, k])).astype(f32)
+        f = (one - alpha + f32(1e-15)).astype(f32)
+        logT = np.where(alive, (logT + np.log(f)).astype(f32), logT)
     d_sig = np.zeros_like(sig)
     d_rgb = np.zeros_like(rgb)
-    S = np.zeros((N, 5), np.float32)
+    S = np.zeros((N, 5), f32)
     for k in range(K - 1, -1, -1):
         m = live[:, k]
-        alpha = np.float32(1) - np.exp(-sig[:, k] * dt[:, k])
-        logT = np.where(m, logT - np.log(np.float32(1) - alpha
-                                         + np.float32(1e-15)), logT)
+        alpha = one - np.exp(-sig[:, k] * dt[:, k])
+        logT = np.where(m, logT - np.log(one - alpha + f32(1e-15)), logT)
         Tk = np.exp(logT)
         w = alpha * Tk
         tn = Tk * (1 - alpha)
         vals = np.stack([np.ones(N), ts[:, k], rgb[:, k, 0], rgb[:, k, 1],
-                         rgb[:, k, 2]], -1).astype(np.float32)
+                         rgb[:, k, 2]], -1).astype(f32)
         gs = np.stack([g_ws, g_d, g_rgb[:, 0], g_rgb[:, 1], g_rgb[:, 2]], -1)
-        acc = (gs * (tn[:, None] * vals - S)).sum(-1)
-        d_sig[:, k] = np.where(m, dt[:, k] * acc, 0)
+        acc_b = (gs * (tn[:, None] * vals - S)).sum(-1)
+        d_sig[:, k] = np.where(m, dt[:, k] * acc_b, 0)
         d_rgb[:, k] = np.where(m[:, None], g_rgb * w[:, None], 0)
         S += np.where(m[:, None], w[:, None] * vals, 0)
     return (ws, dep, col), (d_sig, d_rgb)
 
 
-@pytest.mark.parametrize("K", [32, 128])
+@pytest.mark.parametrize("K", [16, 32, 48, 128])
 def test_fused_composite_matches_jax(K):
     """composite_fused (plain path) vs the JAX Pallas kernel in interpret
     mode and vs autodiff of the JAX compositor: values 1e-5, grads 1e-4
