@@ -35,8 +35,8 @@ Phases:
            sample count, uniform in a box 5% wider than the encoder's so a
            share lies outside: three Adam steps of the table on a
            sum-of-squares loss to a fixed target (finite, falling, zeros
-           outside the box); kernel E launches once per backward, kernel A
-           never;
+           outside the box), and the phase's peak device memory; kernel E
+           launches once per backward, kernel A never;
   edit     the single-scene editing path: a .dvgo checkpoint at the width
            of a DVGO fine model (160^3 grids, 12 feature channels, a
            128 x 3 residual colour MLP, PE 5 / 4; a noisy ball of density)
@@ -57,10 +57,12 @@ Phases:
            compacted steps' sample counts and all 16 level sizes, plus a
            4,096-row level, each an entry of the kernels line, with the
            mean distinct rows per 32-sample warp at each level; the hash
-           grid's row scatter at the
-           hashgrid phase's inputs and at a 4-level spec; the compositor at
-           N = 4,096 rays with every K of the trainer's ladder up to grid_K,
-           timed at the main path's K; flash attention at the UNet's
+           grid's scatter, which forms its rows from the unit positions, at
+           the hashgrid phase's inputs and at a 4-level spec; the
+           compositor at N = 4,096 rays with every K of the trainer's ladder
+           up to grid_K, timed at the main path's K by device time, and
+           B-bwd's mask against B-fwd's on 4,096 rays that cross T_thresh
+           within rounding; flash attention at the UNet's
            and the VAE's 4,096-token self-attention, the VAE's with its
            backward (each shape an entry of the kernels line, with its
            achieved TFLOP/s beside scaled_dot_product_attention's); the
@@ -611,8 +613,9 @@ def phase_hashgrid(steps: int = 3):
     final = float(((spec(table.detach(), x) - target) ** 2).sum())
     log(f"[hashgrid] loss per step {' '.join(f'{l:.6g}' for l in losses)} "
         f"-> {final:.6g}; {dt / steps * 1e3:.1f} ms a step (forward, "
-        f"backward, Adam); peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        f"backward, Adam)")
+    log(f"[hashgrid] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
     log(f"[hashgrid] kernels {json.dumps(counts)}")
     if not (all(math.isfinite(l) for l in losses + [final])
             and all(b < a for a, b in zip(losses, losses[1:] + [final]))):
@@ -894,18 +897,21 @@ def grid_encoder_aggregation(base, cot):
 
 
 def check_grid_encoder_rows(spec, x, label, gen, timed: bool):
-    """Kernel E against its plain version (index_add_ per level and corner)
-    on positions x; samples outside the box get a zero cotangent, as the
-    encoder's backward gives them, and the kernel skips them."""
+    """Kernel E (corners, weights and rows formed in the kernel from the
+    unit positions) against its plain version (spec.corner_rows, then
+    index_add_ per level and corner) on positions x; samples outside the
+    box get a zero cotangent, as the encoder's backward gives them, and the
+    kernel skips them."""
     from dreamfusion_torch.ops import grid_encoder as ge
 
-    rows, w, oob = spec.residuals_rows(x)
-    L, _, J = rows.shape
-    T = spec.table_size
+    xT, oob = spec._unit_positions(x, 1.0)
+    x01 = xT.t()
+    L, J, T = spec.num_levels, x01.shape[0], spec.table_size
     cot = torch.randn(J, L, 2, device=x.device, generator=gen)
     cot = cot * (~oob)[:, None, None]
     n_live = int((~oob).sum())
-    d_k = ge.grid_encoder_bwd_rows_cuda(rows, w, cot, T)
+    d_k = ge.grid_encoder_bwd_rows_cuda(spec, x01, cot)
+    rows, w = spec.corner_rows(x01)
     d_p = ge.grid_encoder_bwd_rows_plain(rows, w, cot, T)
     torch.cuda.synchronize()
     # both sides sum in f32 with atomics in no fixed order
@@ -914,26 +920,40 @@ def check_grid_encoder_rows(spec, x, label, gen, timed: bool):
     log(f"[kernels] E grid_encoder_bwd_rows {label}: L={L} J={J:,} (inside "
         f"the box {n_live:,}) T={T:,} max_abs_err {err:.3e} (tol {tol:.3e})")
     if not err <= tol:
-        raise AssertionError(f"kernel E disagrees with index_add_ ({label})")
+        raise AssertionError(f"kernel E disagrees with its plain version ({label})")
     if not timed:
         return None
-    ms = cuda_ms(lambda: ge.grid_encoder_bwd_rows_cuda(rows, w, cot, T))
-    plain_ms = cuda_ms(lambda: ge.grid_encoder_bwd_rows_plain(rows, w, cot, T),
-                       reps=3, warmup=1)
+    kernel = lambda: ge.grid_encoder_bwd_rows_cuda(spec, x01, cot)  # noqa: E731
+    ms = cuda_ms(kernel)
+    dev_ms = device_ms(kernel)
+    plain_ms = cuda_ms(lambda: ge.grid_encoder_bwd_rows_plain(
+        *spec.corner_rows(x01), cot, T), reps=3, warmup=1)
+    # the kernel's atomics, at most: 8 a live (sample, level), less one for
+    # each pair of x-neighbour corners whose rows share 16 bytes (float4);
+    # on affine levels lanes of one cell issue one set
+    inside = rows[:, :, ~oob].long()
+    n_ops = L * n_live * 8 - int(((inside[:, 0::2] ^ inside[:, 1::2]) == 1).sum())
+    del inside
     flat_rows = rows.reshape(-1).long()
     upd = (w[..., None] * cot.permute(1, 0, 2)[:, None]).reshape(-1, 2)
+    del rows, w
     out = torch.zeros(T, 2, device=x.device)
     lib_ms = cuda_ms(lambda: out.index_add_(0, flat_rows, upd), reps=5,
                      warmup=1)
-    # every cotangent is read; rows and weights only for samples inside
-    nbytes = L * J * 8 + L * n_live * (32 + 32) + T * 2 * 4
-    b_ms, b_by = bound(nbytes, L * n_live * 32)
-    log(f"[kernels] E times ({label}): kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, one index_add_ over all {flat_rows.shape[0]:,} "
-        f"rows {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
-        f"{L * n_live * 16 / ms / 1e6:.1f} G f32 adds/s")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    # x01 and every cotangent read once, the table written once
+    nbytes = J * 12 + L * J * 8 + T * 2 * 4
+    updates = L * n_live * 8
+    b_ms, b_by = bound(nbytes, updates * 2)
+    log(f"[kernels] E times ({label}): kernel {ms:.4f} ms by CUDA events, "
+        f"{dev_ms:.4f} ms of device time (the table's zeroing included), "
+        f"plain {plain_ms:.4f} ms, one index_add_ over all "
+        f"{flat_rows.shape[0]:,} rows {lib_ms:.4f} ms (kernel / index_add_ "
+        f"{ms / lib_ms:.3f}), bound {b_ms:.4f} ms ({b_by}; {b_ms / ms:.3f} "
+        f"of it); {updates:,} row updates, {updates / ms / 1e6:.1f} G/s, in "
+        f"at most {n_ops:,} atomics, {n_ops / ms / 1e6:.1f} G/s")
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms, "row_updates": updates, "atomics": n_ops}
 
 
 def composite_inputs(N, K, gen, device):
@@ -979,23 +999,96 @@ def check_composite(N, K, gen, device, timed: bool):
     if not timed:
         return None
     fwd = lambda: fc.composite_fwd_cuda(sig, rgb, dt, ts, T)  # noqa: E731
-    f_ms = cuda_ms(fwd)
-    f_dev = device_ms(fwd)
+    bwd = lambda: fc.composite_bwd_cuda(sig, rgb, dt, ts, gws, gd, gc, T)  # noqa: E731
+    f_ms, f_dev = cuda_ms(fwd), device_ms(fwd)
     f_plain = cuda_ms(lambda: fc.composite_fwd_plain(sig, rgb, dt, ts, T))
-    b_ms = cuda_ms(lambda: fc.composite_bwd_cuda(sig, rgb, dt, ts, gws, gd, gc, T))
+    b_ms, b_dev = cuda_ms(bwd), device_ms(bwd)
     b_plain = cuda_ms(lambda: fc.composite_bwd_plain(sig, rgb, dt, ts, gws, gd,
                                                      gc, T))
     fb, fby = bound(live * 24 + N * 20, live * 14)
     bb, bby = bound(live * 24 + N * 20 + N * K * 16, live * 40)
     log(f"[kernels] B-fwd {f_ms:.4f} ms by CUDA events over 20 launches, "
         f"{f_dev:.4f} ms of device time (torch.profiler) (plain "
-        f"{f_plain:.4f}, bound {fb:.5f} {fby}); B-bwd {b_ms:.4f} ms (plain "
-        f"{b_plain:.4f}, bound {bb:.5f} {bby})")
-    return ({"max_abs_err": e_f, "ms": f_ms, "device_ms": f_dev,
+        f"{f_plain:.4f}, bound {fb:.5f} {fby}); B-bwd {b_ms:.4f} ms by CUDA "
+        f"events, {b_dev:.4f} ms of device time (plain {b_plain:.4f}, bound "
+        f"{bb:.5f} {bby}; {bb / b_dev:.3f} of it)")
+    # "ms" is the device time: at this size CUDA events read the host's
+    # issue time
+    return ({"max_abs_err": e_f, "ms": f_dev, "events_ms": f_ms,
              "plain_ms": f_plain,
              "bound_ms": fb, "bound_by": fby, "library_ms": None},
-            {"max_abs_err": e_b, "ms": b_ms, "plain_ms": b_plain,
+            {"max_abs_err": e_b, "ms": b_dev, "events_ms": b_ms,
+             "plain_ms": b_plain,
              "bound_ms": bb, "bound_by": bby, "library_ms": None})
+
+
+def crossing_rays(N, K, T_thresh, device):
+    """Rays on the 512-step lattice whose T at one sample k* (7, 40, 77 or
+    120 by n % 4: lanes of chunks 0-3) is swept across T_thresh in single
+    ulps of the sigma before it (~0.4 ulp of log T a ray); sample 0 has
+    alpha ~0.9, alpha at k* is ~0.05, and every sigma is > 0, after k* too.
+    The construction of tests/test_torch_cuda.py::
+    test_fused_composite_masks_agree_across_the_crossing."""
+    f32 = np.float32
+    rng = np.random.default_rng(13)
+    dt0 = f32(2 * math.sqrt(3) / 512)
+    kstar = np.array([7, 40, 77, 120])[np.arange(N) % 4]
+    sd = rng.uniform(0.1, 0.5, (N, K))
+    sd[:, 0] = 2.3
+    rows = np.arange(N)
+    sd[rows, kstar] = 0.0513
+
+    def log_terms(s):
+        a = (f32(1) - np.exp(-(s * dt0).astype(f32))).astype(f32)
+        return np.log((f32(1) - a + f32(1e-15)).astype(f32)).astype(np.float64)
+
+    sig = (sd / dt0).astype(f32)
+    for k in np.unique(kstar):
+        sel = kstar == k
+        sig[np.ix_(sel, np.arange(1, k - 1))] = f32(
+            (-math.log(T_thresh) - 2.3 - 4.0) / (k - 2) / dt0)
+        need = math.log(T_thresh) - log_terms(sig[sel, :k - 1]).sum(1)
+        sig[sel, k - 1] = (-need / dt0).astype(f32)
+    step = (rows // 4 - N // 8).astype(np.int32)
+    sig[rows, kstar - 1] = (sig[rows, kstar - 1].view(np.int32) + step).view(f32)
+    sig = torch.from_numpy(sig).to(device)
+    dt = torch.full((N, K), float(dt0), device=device)
+    ts = (torch.cumsum(dt, -1) + 0.3).contiguous()
+    rgb = torch.rand(N, K, 3, device=device,
+                     generator=torch.Generator(device=device).manual_seed(14))
+    return sig, rgb, dt, ts, torch.from_numpy(kstar).to(device)
+
+
+def check_composite_crossing(N, K, device):
+    """B-bwd's mask against B-fwd's on rays that cross T_thresh within
+    rounding: with g_rgb = (1, 0, 0) and g_ws = g_d = 0, B-bwd's d_rgb[...,
+    0] is its w_k, and its sum over k must equal B-fwd's weights_sum to 1e-6
+    on every ray (a sample masked in one kernel and live in the other moves
+    it by alpha T = 5e-6). Also how many rays the plain version (log T by
+    torch.cumsum, another order) masks otherwise at k*."""
+    from dreamfusion_torch.ops import fused_composite as fc
+
+    T = 1e-4
+    sig, rgb, dt, ts, kstar = crossing_rays(N, K, T, device)
+    z = torch.zeros(N, device=device)
+    gc = torch.zeros(N, 3, device=device)
+    gc[:, 0] = 1.0
+    ws, _, _ = fc.composite_fwd_cuda(sig, rgb, dt, ts, T)
+    _, d_rgb = fc.composite_bwd_cuda(sig, rgb, dt, ts, z, z, gc, T)
+    trans = fc._excl_log_trans(sig, dt)[1]
+    torch.cuda.synchronize()
+    rows = torch.arange(N, device=device)
+    live_k = trans[rows, kstar] > T
+    err = float((d_rgb[..., 0].sum(-1) - ws).abs().max())
+    plain_differs = int(((d_rgb[..., 0] != 0) != (trans > T)).any(-1).sum())
+    log(f"[kernels] B crossing N={N} K={K}: T at k* above T_thresh on "
+        f"{int(live_k.sum())} of {N} rays (plain version); |sum_k B-bwd w_k "
+        f"- B-fwd weights_sum| max {err:.3e} (tol 1e-6); rays the plain "
+        f"version masks otherwise: {plain_differs}")
+    if not (err <= 1e-6 and live_k.any() and not live_k.all()
+            and bool((sig > 0).all())):
+        raise AssertionError("B-bwd's mask differs from B-fwd's on the "
+                             "crossing rays")
 
 
 def check_attention(B, N, H, D, gen, device, grad: bool):
@@ -1196,6 +1289,7 @@ def phase_kernels(trainer, counts, captured=None):
         if k <= grid_K and k != K:
             check_composite(4096, k, gen, dev, timed=False)
     bf, bb = check_composite(4096, K, gen, dev, timed=True)
+    check_composite_crossing(4096, 128, dev)
     # the UNet's self-attention over 64x64 latents (CFG batch 2, 8 heads of
     # 40, no gradient) and the VAE mid-block's (1 head of 512, gradient)
     unet_attn = check_attention(2, 4096, 8, 40, gen, dev, grad=False)

@@ -24,10 +24,12 @@ JAX package (grid_encoder.py:461-464, 513-524):
   kernel A (csrc/grid_encoder_bwd.cu) on CUDA and runs
   ``grid_encoder_bwd_plain`` on the CPU;
 - any level hashed: every corner of every level goes through the index
-  function (a hashed corner is not ``base + offset``), the residuals are
-  the global rows ``[L, 8, B]``, and ``_EncodeLevelsRows.backward`` launches
-  kernel E (the second entry of csrc/grid_encoder_bwd.cu) on CUDA and runs
-  ``grid_encoder_bwd_rows_plain`` on the CPU;
+  function (a hashed corner is not ``base + offset``). The forward gathers
+  level by level and keeps only the unit positions ``x01`` [B, D] for the
+  backward; ``_EncodeLevelsRows.backward`` launches kernel E (the second
+  entry of csrc/grid_encoder_bwd.cu), which forms the corners, weights and
+  rows from ``x01`` itself, on CUDA, and on the CPU rebuilds the rows
+  ``[L, 8, B]`` (``corner_rows``) for ``grid_encoder_bwd_rows_plain``;
 - ``differentiable_inputs=True``: plain autograd through the gather, which
   also gives d(out)/d(position) with d(frac)/dx = scale (the reference's
   calc_grad_inputs); no custom backward.
@@ -239,40 +241,67 @@ class GridEncoderSpec:
             weights.append(w8)
         return torch.stack(bases), torch.stack(weights), oob
 
-    def residuals_rows(self, inputs: torch.Tensor, bound: float = 1.0):
-        """Positions [B, D] -> (rows [L, 2^D, B] int32 global table rows of
-        the corners, level offsets included; w_all [L, 2^D, B] f32; oob [B]
-        bool): the JAX VJP's residuals of an encoder with a hashed level
-        (grid_encoder.py:261-266) and kernel E's inputs."""
-        xT, oob = self._unit_positions(inputs, bound)
+    def corner_rows(self, x01: torch.Tensor):
+        """Unit positions [B, D] -> (rows [L, 2^D, B] int32 global table
+        rows of the corners, level offsets included; w_all [L, 2^D, B] f32):
+        what kernel E computes from x01 for itself."""
+        xT = x01.t()
         rows, weights = [], []
         for lvl in range(self.num_levels):
             pos_grid, w8 = self._level_corners(xT, lvl)
             rows.append(self._level_rows(pos_grid, lvl).to(torch.int32))
             weights.append(w8)
-        return torch.stack(rows), torch.stack(weights), oob
+        return torch.stack(rows), torch.stack(weights)
 
-    def _encode_differentiable(self, embeddings, inputs, bound: float):
-        """[B, L*C] and oob by plain autograd: the gather's transpose is the
-        table gradient, and the weights carry d/d(position)."""
+    def residuals_rows(self, inputs: torch.Tensor, bound: float = 1.0):
+        """Positions [B, D] -> (rows, w_all as in corner_rows; oob [B]
+        bool): the JAX VJP's residuals of an encoder with a hashed level
+        (grid_encoder.py:261-266)."""
         xT, oob = self._unit_positions(inputs, bound)
+        return (*self.corner_rows(xT.t()), oob)
+
+    def rows_level_table(self, device: torch.device) -> torch.Tensor:
+        """[L, 8] int32, kernel E's constant table: per level the scale
+        and the shift as f32 bits (the float32 values `_level_corners`
+        computes with), size, offset, the uint32 strides by dimension (0
+        where a dimension is not in the affine sum) and the hashed flag."""
+        scales, _, sizes, offsets, _ = self.geometry
+        f32_bits = lambda v: int(torch.tensor(v, dtype=torch.float32)  # noqa: E731
+                                 .view(torch.int32))
+        as_i32 = lambda v: v - (1 << 32) if v >= 1 << 31 else v  # noqa: E731
+        rows = []
+        for lvl in range(self.num_levels):
+            strides, hashed = self._strides(lvl)
+            rows.append([f32_bits(scales[lvl]),
+                         f32_bits(0.0 if self.align_corners else 0.5),
+                         sizes[lvl], offsets[lvl],
+                         *(as_i32(strides.get(d, 0))
+                           for d in range(self.input_dim)), int(hashed)])
+        return torch.tensor(rows, dtype=torch.int32, device=device)
+
+    def _gather_levels(self, embeddings, xT) -> torch.Tensor:
+        """Gather + trilinear blend level by level -> [B, L, C] (f32); the
+        rows and weights of one level at a time."""
         outs = []
         for lvl in range(self.num_levels):
             pos_grid, w8 = self._level_corners(xT, lvl)
             vals = embeddings[self._level_rows(pos_grid, lvl)]   # [2^D, B, C]
             outs.append((w8[..., None] * vals.float()).sum(0))
-        return torch.cat(outs, dim=-1), oob
+        return torch.stack(outs, dim=1)
 
     def __call__(self, embeddings: torch.Tensor, inputs: torch.Tensor,
                  bound: float = 1.0) -> torch.Tensor:
         """Encode positions in [-bound, bound] -> [..., L*C] features."""
         prefix = inputs.shape[:-1]
         if self.differentiable_inputs:
-            out, oob = self._encode_differentiable(embeddings, inputs, bound)
+            # plain autograd: the gather's transpose is the table gradient,
+            # and the weights carry d/d(position)
+            xT, oob = self._unit_positions(inputs, bound)
+            out = self._gather_levels(embeddings, xT)
         elif any(self.hashed_levels):
             with torch.no_grad():
-                rows, w_all, oob = self.residuals_rows(inputs, bound)
-            out = _EncodeLevelsRows.apply(embeddings, rows, w_all)
+                xT, oob = self._unit_positions(inputs, bound)
+            out = _EncodeLevelsRows.apply(embeddings, xT.t(), self)
         else:
             with torch.no_grad():
                 base_all, w_all, oob = self.residuals(inputs, bound)
@@ -342,7 +371,7 @@ def _lib():
     if not getattr(lib, "_typed", False):
         lib.grid_encoder_bwd.argtypes = [_VP] * 5 + [_I, _I, _VP]
         lib.grid_encoder_bwd.restype = _I
-        lib.grid_encoder_bwd_rows.argtypes = [_VP] * 4 + [_I, _I, _I, _VP]
+        lib.grid_encoder_bwd_rows.argtypes = [_VP] * 4 + [_I, _I, _VP]
         lib.grid_encoder_bwd_rows.restype = _I
         lib._typed = True
     return lib
@@ -390,21 +419,13 @@ class _EncodeLevels(torch.autograd.Function):
         return d.to(ctx.emb_dtype), None, None, None
 
 
-# -- encoders with a hashed level: residuals are the corner rows -----------------
-
-def encode_rows_fwd(emb, rows, w_all) -> torch.Tensor:
-    """Plain gather + trilinear blend over given rows -> [B, L, C] (f32)."""
-    outs = []
-    for lvl in range(rows.shape[0]):
-        vals = emb[rows[lvl].long()].float()                      # [8, B, C]
-        outs.append((w_all[lvl][..., None] * vals).sum(0))
-    return torch.stack(outs, dim=1)
-
+# -- encoders with a hashed level: the residual is the unit positions -----------
 
 def grid_encoder_bwd_rows_plain(rows, w_all, cot, total: int) -> torch.Tensor:
     """d_emb [T, C]: d_emb[rows[l, c, j]] += w_all[l, c, j] * cot[j, l] by
     index_add_ per level and corner, summed in f32 (the JAX package's f32
-    ``.at[].add``, grid_encoder.py:268-272)."""
+    ``.at[].add``, grid_encoder.py:268-272). With ``spec.corner_rows(x01)``
+    it is kernel E's plain version."""
     d = torch.zeros(total, cot.shape[-1], device=cot.device,
                     dtype=torch.float32)
     for lvl in range(rows.shape[0]):
@@ -414,41 +435,53 @@ def grid_encoder_bwd_rows_plain(rows, w_all, cot, total: int) -> torch.Tensor:
     return d
 
 
-def grid_encoder_bwd_rows_cuda(rows, w_all, cot, total: int) -> torch.Tensor:
-    """Kernel E: same contract as grid_encoder_bwd_rows_plain (C = 2, 8
-    corners), all levels in one launch."""
-    L, n_c, B = rows.shape
-    dev = rows.device
-    cuda.require(rows, "rows", torch.int32, (L, 8, B))
-    cuda.require(w_all, "w_all", torch.float32, (L, 8, B), dev)
+_ROWS_TABLES: Dict[Tuple[GridEncoderSpec, str], torch.Tensor] = {}
+
+
+def grid_encoder_bwd_rows_cuda(spec: GridEncoderSpec, x01: torch.Tensor,
+                               cot: torch.Tensor) -> torch.Tensor:
+    """Kernel E: the table gradient [T, 2] of an encoder with a hashed level
+    from the unit positions x01 [B, 3] and the cotangent cot [B, L, 2], all
+    levels in one launch; same contract as grid_encoder_bwd_rows_plain on
+    spec.corner_rows(x01)."""
+    B, L = x01.shape[0], spec.num_levels
+    dev = x01.device
+    cuda.require(x01, "x01", torch.float32, (B, 3))
     cuda.require(cot, "cot", torch.float32, (B, L, 2), dev)
-    d = torch.zeros(total, 2, device=dev, dtype=torch.float32)
-    err = _lib().grid_encoder_bwd_rows(rows.data_ptr(), w_all.data_ptr(),
-                                       cot.data_ptr(), d.data_ptr(), L, B,
-                                       total, cuda.stream_ptr(dev))
+    if spec.input_dim != 3 or spec.level_dim != 2:
+        raise ValueError("kernel E takes 3-D positions and 2 features a level")
+    key = (spec, str(dev))
+    if key not in _ROWS_TABLES:
+        _ROWS_TABLES[key] = spec.rows_level_table(dev)
+    d = torch.zeros(spec.table_size, 2, device=dev, dtype=torch.float32)
+    err = _lib().grid_encoder_bwd_rows(x01.data_ptr(), cot.data_ptr(),
+                                       _ROWS_TABLES[key].data_ptr(),
+                                       d.data_ptr(), L, B,
+                                       cuda.stream_ptr(dev))
     cuda.check_launch(err, "grid_encoder_bwd_rows")
     cuda.launch_counts["grid_encoder_bwd_rows"] += 1
     return d
 
 
-def grid_encoder_bwd_rows(rows, w_all, cot, total: int):
+def grid_encoder_bwd_rows(spec: GridEncoderSpec, x01, cot):
     if cot.is_cuda:
-        return grid_encoder_bwd_rows_cuda(rows, w_all, cot, total)
-    return grid_encoder_bwd_rows_plain(rows, w_all, cot, total)
+        return grid_encoder_bwd_rows_cuda(spec, x01, cot)
+    return grid_encoder_bwd_rows_plain(*spec.corner_rows(x01), cot,
+                                       spec.table_size)
 
 
 class _EncodeLevelsRows(torch.autograd.Function):
-    """emb [T, C], rows [L, 8, B], w_all [L, 8, B] -> [B, L, C]."""
+    """emb [T, C], x01 [B, D] unit positions -> [B, L, C]; x01 is the only
+    residual (the rows and weights of the forward's gather are freed)."""
 
     @staticmethod
-    def forward(ctx, emb, rows, w_all):
-        ctx.save_for_backward(rows, w_all)
-        ctx.emb_shape, ctx.emb_dtype = emb.shape, emb.dtype
-        return encode_rows_fwd(emb, rows, w_all)
+    def forward(ctx, emb, x01, spec):
+        ctx.save_for_backward(x01)
+        ctx.spec, ctx.emb_dtype = spec, emb.dtype
+        return spec._gather_levels(emb, x01.t())
 
     @staticmethod
     def backward(ctx, cot):
-        rows, w_all = ctx.saved_tensors
-        d = grid_encoder_bwd_rows(rows, w_all, cot.float().contiguous(),
-                                  ctx.emb_shape[0])
+        (x01,) = ctx.saved_tensors
+        d = grid_encoder_bwd_rows(ctx.spec, x01, cot.float().contiguous())
         return d.to(ctx.emb_dtype), None, None

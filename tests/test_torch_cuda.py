@@ -9,6 +9,7 @@ GPU machine with
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -137,6 +138,67 @@ def test_grid_encoder_bwd_rows_kernel_matches_index_add(dev, spec_kw, B):
     assert (emb.grad - d_p).abs().max() <= 2e-5 * d_p.abs().max()
 
 
+def _unit_points_on_faces(spec, B, seed, dev):
+    """x01 [B, 3] f32: a quarter uniform in the unit box, half on cell faces
+    of a random level (per dimension with probability 1/2: x01 = (m -
+    shift) / scale for an integer m of that level), a quarter outside the
+    box on either side."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 1, (B, 3))
+    scales, resolutions = spec.geometry[0], spec.geometry[1]
+    lvl = rng.integers(0, spec.num_levels, B)
+    sc = np.array(scales)[lvl][:, None]
+    m = np.floor(rng.uniform(size=(B, 3)) * np.array(resolutions)[lvl][:, None])
+    face = (rng.uniform(size=(B, 3)) < 0.5) & (np.arange(B) % 4 < 2)[:, None]
+    x = np.where(face, ((m - 0.5) / sc).astype(np.float32), x)
+    out = np.arange(B) % 4 == 3
+    x[out] = np.where(rng.uniform(size=(out.sum(), 3)) < 0.5,
+                      rng.uniform(-0.3, 0.0, (out.sum(), 3)),
+                      rng.uniform(1.0001, 1.3, (out.sum(), 3)))
+    return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("spec_kw,B", [
+    (dict(), 100_000),
+    (dict(num_levels=4, base_resolution=8, per_level_scale=1.5,
+          log2_hashmap_size=9), 20_000)],
+    ids=["default hash spec", "4 levels of 512 rows"])
+def test_grid_encoder_bwd_rows_kernel_on_cell_faces(dev, spec_kw, B):
+    """Kernel E, which forms corners, weights and rows from x01 itself, vs
+    its plain version (corner_rows + index_add_) on points on cell faces
+    and outside the box, every cotangent non-zero: 2e-5 of the largest
+    entry (atomics sum in another order; at a face either corner choice
+    moves the gradient by rounding only). Through the encoder (the box's
+    outside reads zeros, its cotangent is zero) one E launch a backward
+    and none of A, against the same plain version."""
+    from dreamfusion_torch.ops import cuda as kcuda
+    from dreamfusion_torch.ops import grid_encoder as ge
+
+    spec = ge.GridEncoderSpec(gridtype="hash", **spec_kw)
+    x01 = _unit_points_on_faces(spec, B, 11, dev)
+    g = torch.Generator(device=dev).manual_seed(12)
+    cot = torch.randn(B, spec.num_levels, 2, device=dev, generator=g)
+    d_k = ge.grid_encoder_bwd_rows_cuda(spec, x01, cot)
+    d_p = ge.grid_encoder_bwd_rows_plain(*spec.corner_rows(x01), cot,
+                                         spec.table_size)
+    torch.cuda.synchronize()
+    assert (d_k - d_p).abs().max() <= 2e-5 * d_p.abs().max()
+
+    emb = spec.init(g, dev).requires_grad_(True)
+    n0 = dict(kcuda.launch_counts)
+    out = spec(emb, x01 * 2 - 1)
+    (out * cot.reshape(B, -1)).sum().backward()
+    assert kcuda.launch_counts["grid_encoder_bwd_rows"] \
+        == n0["grid_encoder_bwd_rows"] + 1
+    assert kcuda.launch_counts["grid_encoder_bwd"] == n0["grid_encoder_bwd"]
+    rows, w, oob = spec.residuals_rows(x01 * 2 - 1)
+    d_p = ge.grid_encoder_bwd_rows_plain(rows, w, cot * (~oob)[:, None, None],
+                                         spec.table_size)
+    torch.cuda.synchronize()
+    assert oob.sum() >= B // 4
+    assert (emb.grad - d_p).abs().max() <= 2e-5 * d_p.abs().max()
+
+
 @pytest.mark.parametrize("K", [32, 128])
 def test_fused_composite_kernels_match_plain(dev, K):
     """Kernels B-fwd / B-bwd vs the plain formulas, rays crossing
@@ -245,6 +307,88 @@ def test_fused_composite_backward_mask_is_the_forwards(dev):
     for a, b in zip(fc.composite_fwd_cuda(sig, rgb, dt, ts, T),
                     fc.composite_fwd_plain(sig, rgb, dt, ts, T)):
         assert (a - b).abs().max() <= 1e-5
+
+
+def _crossing_rays(N, K, T_thresh, dev):
+    """Rays on the 512-step lattice whose T at one sample k* (7, 40, 77 or
+    120 by n % 4: lanes of chunks 0-3) is swept across T_thresh: sample 0
+    has alpha ~0.9, k* - 2 samples share the rest of the log sum but ~4,
+    sample k* - 1 takes that ~4 at the sigma whose log terms sum to
+    log(T_thresh) in f64, moved by n // 4 - N / 8 ulps (single ulps of
+    sigma, ~0.4 ulp of log T each), and alpha at k* is ~0.05. Every sigma
+    is > 0, after k* too (sigma delta uniform in [0.1, 0.5])."""
+    f32 = np.float32
+    rng = np.random.default_rng(13)
+    dt0 = f32(2 * math.sqrt(3) / 512)
+    kstar = np.array([7, 40, 77, 120])[np.arange(N) % 4]
+    sd = rng.uniform(0.1, 0.5, (N, K))
+    sd[:, 0] = 2.3
+    rows = np.arange(N)
+    sd[rows, kstar] = 0.0513
+
+    def log_terms(s):
+        a = (f32(1) - np.exp(-(s * dt0).astype(f32))).astype(f32)
+        return np.log((f32(1) - a + f32(1e-15)).astype(f32)).astype(np.float64)
+
+    sig = (sd / dt0).astype(f32)
+    for k in np.unique(kstar):
+        sel = kstar == k
+        sig[np.ix_(sel, np.arange(1, k - 1))] = f32(
+            (-math.log(T_thresh) - 2.3 - 4.0) / (k - 2) / dt0)
+        need = math.log(T_thresh) - log_terms(sig[sel, :k - 1]).sum(1)
+        sig[sel, k - 1] = (-need / dt0).astype(f32)
+    step = (rows // 4 - N // 8).astype(np.int32)
+    sig[rows, kstar - 1] = (sig[rows, kstar - 1].view(np.int32) + step).view(f32)
+    sig = torch.from_numpy(sig).to(dev)
+    dt = torch.full((N, K), float(dt0), device=dev)
+    ts = torch.cumsum(dt, -1) + 0.3
+    g = torch.Generator(device=dev).manual_seed(14)
+    rgb = torch.rand(N, K, 3, device=dev, generator=g)
+    return sig, rgb, dt, ts.contiguous(), torch.from_numpy(kstar).to(dev)
+
+
+def test_fused_composite_masks_agree_across_the_crossing(dev):
+    """B-bwd's mask is B-fwd's, bit for bit, on 4,096 rays swept in
+    single-ulp steps of sigma across T_thresh at sample k*, sigma > 0 on
+    both sides and beyond. With g_rgb = (1, 0, 0) and g_ws = g_d = 0,
+    B-bwd's d_rgb[..., 0] is its w_k, so its sum over k equals B-fwd's
+    weights_sum to 1e-6 on every ray (the two sums' rounding is ~3e-7);
+    a sample live in one kernel and masked in the other moves it by alpha
+    T = 5e-6. Both kernels against the plain versions at their tolerances
+    (fwd 1e-5, bwd 1e-4 of the largest entry). The plain version sums log
+    T by torch.cumsum, in another order, so on a ray whose T at k* lies
+    within rounding of T_thresh its mask may differ from the kernels' at
+    k*: d_sigma, whose largest entry is ~1e3 times a sample's T, is held
+    on the rays where the masks agree, and a ray where they differ must
+    differ at k* alone."""
+    from dreamfusion_torch.ops import fused_composite as fc
+
+    N, K, T = 4096, 128, 1e-4
+    sig, rgb, dt, ts, kstar = _crossing_rays(N, K, T, dev)
+    gws, gd = torch.zeros(N, device=dev), torch.zeros(N, device=dev)
+    gc = torch.zeros(N, 3, device=dev)
+    gc[:, 0] = 1.0
+    ws, depth, col = fc.composite_fwd_cuda(sig, rgb, dt, ts, T)
+    d_sig, d_rgb = fc.composite_bwd_cuda(sig, rgb, dt, ts, gws, gd, gc, T)
+    plain_f = fc.composite_fwd_plain(sig, rgb, dt, ts, T)
+    ps, pr = fc.composite_bwd_plain(sig, rgb, dt, ts, gws, gd, gc, T)
+    torch.cuda.synchronize()
+    assert (sig > 0).all()
+    rows = torch.arange(N, device=dev)
+    trans = fc._excl_log_trans(sig, dt)[1]
+    live_k = trans[rows, kstar] > T
+    for k in (7, 40, 77, 120):                  # the sweep crosses T_thresh
+        assert live_k[kstar == k].any() and not live_k[kstar == k].all()
+    assert (d_rgb[..., 0].sum(-1) - ws).abs().max() <= 1e-6
+
+    for a, b in zip((ws, depth, col), plain_f):
+        assert (a - b).abs().max() <= 1e-5
+    assert (d_rgb - pr).abs().max() <= 1e-4 * pr.abs().max()
+    mask_k = d_rgb[..., 0] != 0                 # w_k > 0 iff live (alpha > 0)
+    differ = mask_k != (trans > T)
+    agree = ~differ.any(-1)
+    assert (d_sig - ps)[agree].abs().max() <= 1e-4 * ps.abs().max()
+    assert torch.equal(differ.nonzero()[:, 1], kstar[differ.any(-1)])
 
 
 def test_fused_composite_autograd_reaches_both_kernels(dev):

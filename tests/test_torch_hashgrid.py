@@ -150,6 +150,119 @@ def test_hash_table_grad_matches_k1c_in_interpret_mode(name, B):
                                atol=2e-2)
 
 
+def _face_points(ts, n, seed):
+    """Points in [-1, 1]^3 half of which lie on cell faces of a random level
+    (per dimension with probability 1/2: x01 = (m - 0.5) / scale, x = 2 x01
+    - 1), the rest uniform, with some outside the box."""
+    rng = np.random.default_rng(seed)
+    scales, resolutions = ts.geometry[0], ts.geometry[1]
+    lvl = rng.integers(0, ts.num_levels, n)
+    m = np.floor(rng.uniform(size=(n, 3))
+                 * np.array(resolutions)[lvl][:, None])
+    x01 = ((m - 0.5) / np.array(scales)[lvl][:, None]).astype(np.float32)
+    face = (rng.uniform(size=(n, 3)) < 0.5) & (np.arange(n) % 2 == 0)[:, None]
+    x = np.where(face, x01 * 2 - 1, _points(n, seed + 1))
+    return x.astype(np.float32)
+
+
+def _kernel_e_rows(table, x01):
+    """Kernel E's per-(sample, level) arithmetic in numpy float32 / uint32,
+    from its constant table: pos = x01 * scale + shift, floor, frac, corner
+    0 clamped to [0, 2^32 - 1], the weights multiplied in dimension order,
+    and each corner's row by the XOR hash or the affine sum, % size +
+    offset. -> (rows [L, 8, B] int64, weights [L, 8, B] f32)."""
+    f32, u32 = np.float32, np.uint32
+    tab = table.numpy()
+    scale, shift = tab[:, 0].view(f32), tab[:, 1].view(f32)
+    strides = tab[:, 4:7].view(u32)
+    primes = np.array([1, 2654435761, 805459861], u32)
+    rows, weights = [], []
+    for l in range(tab.shape[0]):
+        pos = (x01 * scale[l]).astype(f32) + shift[l]
+        pg = np.floor(pos)
+        frac = (pos - pg).astype(f32)
+        cell = np.where(pg > 0, np.minimum(pg.astype(np.float64), 2 ** 32 - 1),
+                        0).astype(np.uint64).astype(u32)
+        r8, w8 = [], []
+        for c in range(8):
+            bits = np.array([(c >> d) & 1 for d in range(3)], u32)
+            co = cell + bits
+            if tab[l, 7]:
+                h = co[:, 0] ^ (co[:, 1] * primes[1]) ^ (co[:, 2] * primes[2])
+            else:
+                h = (co * strides[l]).sum(-1, dtype=u32)
+            r8.append((h % u32(tab[l, 2])).astype(np.int64) + int(tab[l, 3]))
+            w = np.ones(x01.shape[0], f32)
+            for d in range(3):
+                w = w * (frac[:, d] if bits[d] else f32(1) - frac[:, d])
+            w8.append(w)
+        rows.append(np.stack(r8))
+        weights.append(np.stack(w8))
+    return np.stack(rows), np.stack(weights)
+
+
+@pytest.mark.parametrize("name", ["default", "small"])
+def test_kernel_e_arithmetic_gives_the_corner_rows_exactly(name):
+    """Kernel E's arithmetic, emulated from rows_level_table (the scale as
+    the float32 torch multiplies by, the strides, the hashed flag), gives
+    the rows and weights of spec.corner_rows bit for bit, on cell faces and
+    outside the box; the table's hashed flags are spec.hashed_levels."""
+    ts = TSpec(**SPECS[name])
+    table = ts.rows_level_table(torch.device("cpu"))
+    assert table.shape == (ts.num_levels, 8)
+    assert table[:, 7].tolist() == [int(h) for h in ts.hashed_levels]
+    x = _face_points(ts, 4096, 8)
+    x01 = ((x + 1.0) / 2.0).astype(np.float32)
+    rows, w = ts.corner_rows(_t(x01))
+    e_rows, e_w = _kernel_e_rows(table, x01)
+    np.testing.assert_array_equal(rows.numpy(), e_rows)
+    np.testing.assert_array_equal(w.numpy(), e_w)
+
+
+def _find_node(grad_fn, name):
+    seen, todo = set(), [grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        if type(fn).__name__ == name:
+            return fn
+        seen.add(fn)
+        todo.extend(f for f, _ in fn.next_functions)
+    return None
+
+
+@pytest.mark.parametrize("name,B", [("default", 256), ("small", 64)])
+def test_hash_table_grad_through_saved_x01_matches_k1c(name, B):
+    """The encoder's backward on the CPU, the port's kernel-E path through
+    the one saved residual x01 [B, 3] and the plain version, against the
+    JAX hashed encoder's table gradient (grid_encoder.py:261-282): K1c in
+    interpret mode to 2e-2 of the largest entry (its updates are rounded to
+    bf16) and the f32 XLA scatter to 1e-5, on points on cell faces and
+    outside the box."""
+    kw = SPECS[name]
+    ts = TSpec(**kw)
+    rng = np.random.default_rng(9)
+    emb = rng.uniform(-1e-4, 1e-4, (ts.table_size, 2)).astype(np.float32)
+    x = _face_points(ts, B, 10)
+    cot = rng.normal(size=(B, ts.output_dim)).astype(np.float32)
+    et = _t(emb).requires_grad_(True)
+    out = ts(et, _t(x))
+    node = _find_node(out.grad_fn, "_EncodeLevelsRowsBackward")
+    saved = node.saved_tensors
+    assert len(saved) == 1 and saved[0].shape == (B, 3)
+    assert saved[0].dtype == torch.float32
+    (out * _t(cot)).sum().backward()
+    for impl, tol in (("interpret", 2e-2), ("xla", 1e-5)):
+        js = JSpec(scatter_impl=impl, **kw)
+        g_j = np.asarray(jax.grad(lambda e: jnp.sum(js(e, jnp.asarray(x))
+                                                    * cot))(jnp.asarray(emb)))
+        scale = np.abs(g_j).max()
+        assert scale > 0
+        np.testing.assert_allclose(et.grad.numpy() / scale, g_j / scale,
+                                   atol=tol)
+
+
 def test_hash_spec_without_hashed_level_takes_kernel_a_path(monkeypatch):
     """(d) A hash spec small enough that no level hashes is all affine and
     goes through _EncodeLevels (kernel A on the card), like the JAX

@@ -168,17 +168,30 @@ def _warp_sum(x):
     return x[..., 0]
 
 
+def _warp_suffix_scan(x):
+    """Inclusive suffix sum over the last axis (32 lanes) in float32, in
+    the order of the kernel's __shfl_down_sync steps."""
+    x = x.astype(np.float32)
+    for off in (1, 2, 4, 8, 16):
+        y = np.zeros_like(x)
+        y[..., :-off] = x[..., off:]
+        x = (x + y).astype(np.float32)
+    return x
+
+
 def _kernel_b_emulation(sig, rgb, dt, ts, g_ws, g_d, g_rgb, T_thresh):
-    """The algorithm of csrc/fused_composite.cu, vectorised over rays. The
-    forward: one warp per ray over chunks of 32 samples (lanes past K read
-    zeros), the inclusive shuffle scan of l = log(1 - alpha + 1e-15), T
-    from the exclusive scan plus the carry, the mask exp(log T) > T_thresh,
-    per-lane sums (rgb float p = lane + 32 r of a chunk is sample p // 3's
-    channel p % 3), the stop after a chunk that ends at T <= T_thresh, one
-    butterfly sum at the end. The backward: a sequential log sum whose
-    exp(log T) > T_thresh decides the live prefix, then the reverse walk
-    with suffix sums and T from the log sum. Holds the kernels' arithmetic
-    to the JAX formulas here, where no GPU can run them."""
+    """The algorithm of csrc/fused_composite.cu, vectorised over rays: one
+    warp per ray over chunks of 32 samples (lanes past K read zeros). The
+    chunk helper both kernels share: the inclusive shuffle scan of l =
+    log(1 - alpha + 1e-15), T from the exclusive scan plus the carry, the
+    mask exp(log T) > T_thresh, the stop after a chunk that ends at T <=
+    T_thresh. The forward: per-lane sums (rgb float p = lane + 32 r of a
+    chunk is sample p // 3's channel p % 3), one butterfly sum at the end.
+    The backward: the same chunks' T and mask, then the chunks in reverse
+    with u = w G (G = g_ws + g_d t + g_rgb . c) summed by a shuffle-down
+    suffix scan plus the later chunks' total, d_sigma = delta (T (1 -
+    alpha) G - S). Holds the kernels' arithmetic to the JAX formulas here,
+    where no GPU can run them."""
     N, K = sig.shape
     f32 = np.float32
     one = f32(1)
@@ -186,6 +199,8 @@ def _kernel_b_emulation(sig, rgb, dt, ts, g_ws, g_d, g_rgb, T_thresh):
     acc = np.zeros((N, 5, 32), f32)       # w, w t, rgb by channel; per lane
     carry = np.zeros(N, f32)
     going = np.ones(N, bool)
+    chunks = []                           # per chunk: lane values for pass 2
+    flat = rgb.reshape(N, 3 * K)
     for k0 in range(0, K, 32):
         k = k0 + lanes
         inside = k < K
@@ -193,16 +208,17 @@ def _kernel_b_emulation(sig, rgb, dt, ts, g_ws, g_d, g_rgb, T_thresh):
         sg = np.where(inside, sig[:, kk], 0).astype(f32)
         d = np.where(inside, dt[:, kk], 0).astype(f32)
         t = np.where(inside, ts[:, kk], 0).astype(f32)
-        alpha = (one - np.exp(-sg * d)).astype(f32)
+        c = np.where(inside[:, None], rgb[:, kk], 0).astype(f32)   # [N,32,3]
+        alpha = (one - np.exp(-(sg * d).astype(f32))).astype(f32)
         l = np.log((one - alpha + f32(1e-15)).astype(f32)).astype(f32)
         incl = _warp_scan(l)
         excl = np.concatenate([np.zeros((N, 1), f32), incl[:, :-1]], 1)
         T = np.exp((carry[:, None] + excl).astype(f32)).astype(f32)
-        wk = np.where(T > f32(T_thresh), alpha * T, 0).astype(f32)
-        wk = np.where(going[:, None], wk, 0).astype(f32)
+        on = (T > f32(T_thresh)) & going[:, None]
+        wk = np.where(on, alpha * T, 0).astype(f32)
+        chunks.append((k0, inside, d, t, c, alpha, T, on, wk))
         acc[:, 0] += wk
         acc[:, 1] += wk * t
-        flat = rgb.reshape(N, 3 * K)
         for r in range(3):
             p = lanes + 32 * r
             ok = p < 3 * (K - k0)
@@ -215,37 +231,24 @@ def _kernel_b_emulation(sig, rgb, dt, ts, g_ws, g_d, g_rgb, T_thresh):
     sums = _warp_sum(acc)
     ws, dep, col = sums[:, 0], sums[:, 1], sums[:, 2:]
 
-    # backward pass 1: the live prefix by the forward's log-space mask
-    logT = np.zeros(N, f32)
-    live = np.zeros((N, K), bool)
-    alive = np.ones(N, bool)
-    for k in range(K):
-        alive = alive & (np.exp(logT) > f32(T_thresh))
-        live[:, k] = alive
-        alpha = (one - np.exp(-sig[:, k] * dt[:, k])).astype(f32)
-        f = (one - alpha + f32(1e-15)).astype(f32)
-        logT = np.where(alive, (logT + np.log(f)).astype(f32), logT)
     d_sig = np.zeros_like(sig)
     d_rgb = np.zeros_like(rgb)
-    S = np.zeros((N, 5), f32)
-    for k in range(K - 1, -1, -1):
-        m = live[:, k]
-        alpha = one - np.exp(-sig[:, k] * dt[:, k])
-        logT = np.where(m, logT - np.log(one - alpha + f32(1e-15)), logT)
-        Tk = np.exp(logT)
-        w = alpha * Tk
-        tn = Tk * (1 - alpha)
-        vals = np.stack([np.ones(N), ts[:, k], rgb[:, k, 0], rgb[:, k, 1],
-                         rgb[:, k, 2]], -1).astype(f32)
-        gs = np.stack([g_ws, g_d, g_rgb[:, 0], g_rgb[:, 1], g_rgb[:, 2]], -1)
-        acc_b = (gs * (tn[:, None] * vals - S)).sum(-1)
-        d_sig[:, k] = np.where(m, dt[:, k] * acc_b, 0)
-        d_rgb[:, k] = np.where(m[:, None], g_rgb * w[:, None], 0)
-        S += np.where(m[:, None], w[:, None] * vals, 0)
+    s_later = np.zeros(N, f32)
+    for k0, inside, d, t, c, alpha, T, on, wk in reversed(chunks):
+        t_next = np.where(on, T * (one - alpha), 0).astype(f32)
+        G = (g_ws[:, None] + g_d[:, None] * t
+             + (g_rgb[:, None, :] * c).sum(-1)).astype(f32)
+        suffix = _warp_suffix_scan(wk * G)
+        after = np.concatenate([suffix[:, 1:], np.zeros((N, 1), f32)], 1)
+        ds = d * (t_next * G - (after + s_later[:, None]))
+        n_in = int(inside.sum())
+        d_sig[:, k0:k0 + n_in] = ds[:, :n_in]
+        d_rgb[:, k0:k0 + n_in] = (g_rgb[:, None, :] * wk[..., None])[:, :n_in]
+        s_later = (s_later + suffix[:, 0]).astype(f32)
     return (ws, dep, col), (d_sig, d_rgb)
 
 
-@pytest.mark.parametrize("K", [16, 32, 48, 128])
+@pytest.mark.parametrize("K", [16, 32, 48, 96, 128, 256])
 def test_fused_composite_matches_jax(K):
     """composite_fused (plain path) vs the JAX Pallas kernel in interpret
     mode and vs autodiff of the JAX compositor: values 1e-5, grads 1e-4
@@ -294,6 +297,43 @@ def test_fused_composite_matches_jax(K):
                                atol=1e-4 * np.abs(_n(st.grad)).max())
     np.testing.assert_allclose(e_dr, _n(rt.grad),
                                atol=1e-4 * np.abs(_n(rt.grad)).max())
+
+
+def test_crossing_rays_separate_the_two_log_sum_orders():
+    """The card's crossing test (test_torch_cuda.py::
+    test_fused_composite_masks_agree_across_the_crossing) can see a
+    backward whose log T runs in another order than the forward's: on its
+    4,096 rays, emulated in float32 numpy, the chunked warp scan plus
+    carry (the helper both kernels share) and a sequential sum (the
+    earlier thread-per-ray B-bwd's order) put T at k* on different sides of
+    T_thresh on some rays, and in
+    each group of k* the sweep leaves T at k* above T_thresh on some rays
+    and not on others."""
+    from test_torch_cuda import _crossing_rays
+
+    f32, T_thresh = np.float32, 1e-4
+    sig, _, dt, _, kstar = _crossing_rays(4096, 128, T_thresh,
+                                          torch.device("cpu"))
+    sig, dt, kstar = sig.numpy(), dt.numpy(), kstar.numpy()
+    alpha = (f32(1) - np.exp(-(sig * dt).astype(f32))).astype(f32)
+    l = np.log((f32(1) - alpha + f32(1e-15)).astype(f32)).astype(f32)
+    N, K = l.shape
+    scan, seq = np.zeros((N, K), f32), np.zeros((N, K), f32)
+    carry, run = np.zeros(N, f32), np.zeros(N, f32)
+    for k0 in range(0, K, 32):
+        incl = _warp_scan(l[:, k0:k0 + 32])
+        excl = np.concatenate([np.zeros((N, 1), f32), incl[:, :-1]], 1)
+        scan[:, k0:k0 + 32] = (carry[:, None] + excl).astype(f32)
+        carry = (carry + incl[:, 31]).astype(f32)
+    for k in range(K):
+        seq[:, k] = run
+        run = (run + l[:, k]).astype(f32)
+    rows = np.arange(N)
+    live_scan = np.exp(scan[rows, kstar]) > f32(T_thresh)
+    live_seq = np.exp(seq[rows, kstar]) > f32(T_thresh)
+    for k in (7, 40, 77, 120):
+        assert live_scan[kstar == k].any() and not live_scan[kstar == k].all()
+    assert (live_scan != live_seq).sum() >= 5
 
 
 def _grid_specs():

@@ -148,9 +148,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                               torch.zeros(16, 8, 4), torch.zeros(4, 16, 2),
                               consts)
     with pytest.raises(ValueError, match="CUDA"):
-        grid_encoder_bwd_rows_cuda(torch.zeros(16, 8, 4, dtype=torch.int32),
-                                   torch.zeros(16, 8, 4),
-                                   torch.zeros(4, 16, 2), 64)
+        grid_encoder_bwd_rows_cuda(GridEncoderSpec(), torch.zeros(4, 3),
+                                   torch.zeros(4, 16, 2))
     q = torch.zeros(1, 64, 1, 8, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
         fa.attention_fwd_cuda(q, q, q, 0.5)
