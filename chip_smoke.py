@@ -24,11 +24,12 @@ Phases:
            Trainer.test render), one warm frame and 3 orbit frames with the
            launch counts set to 0 just before and read just after; frames/s
            and the synced wall of each stage over the same 3 frames; frame
-           1 once more to capture the inputs of kernels C and D, and that
-           staged frame held against
-           a direct full-K render_grid of the same pose (4,096-ray chunks):
-           the f32 table, with the live cut and without, to rtol 1e-4 /
-           atol 1e-5, the default bf16 view to 5e-2 / 2e-2;
+           1 once more to capture the inputs of kernels C and D (kernel C
+           must launch once per compact group), and that staged frame held
+           against a direct full-K render_grid of the same pose (4,096-ray
+           chunks): the f32 table, with the live cut and without, to rtol
+           1e-4 / atol 1e-5, the default bf16 view to 5e-2 / 2e-2; then
+           frame 1 under torch.profiler for its device launches and time;
   hashgrid the hash grid encoder through get_encoder("hashgrid") at its
            default spec (16 levels, 2 features, base 16, scale 2, 2^19 rows
            a level: 7,131,240 rows) on 524,288 points, the -O dense step's
@@ -46,8 +47,10 @@ Phases:
            that phase ran), 5 albedo steps and 5 shaded with autograd
            normals; the grids must stay bitwise frozen and the colour MLP
            must move; then one 800x800 staged eval frame of that field
-           against a direct full-K render_grid of the same pose (rtol 1e-4
-           / atol 1e-5, with the live cut and without); then the same
+           (kernel C once per compact group; its device launches under
+           torch.profiler) against a direct full-K render_grid of the same
+           pose (rtol 1e-4 / atol 1e-5, with the live cut and without);
+           then the same
            frame check on a steeper ball (edge half as wide, twice the
            noise, loaded into a second Trainer and given one occupancy
            refresh): live cut off to 1e-4 / 1e-5, the default live cut to
@@ -66,17 +69,20 @@ Phases:
            and the VAE's 4,096-token self-attention, the VAE's with its
            backward (each shape an entry of the kernels line, with its
            achieved TFLOP/s beside scaled_dot_product_attention's); the
-           eval's row scatter at the compact budgets its
-           groups used and its probe gather at the frame's classify
+           eval's compact compositor (kernel C) at every compact budget its
+           groups used, against its plain version and against B-fwd on
+           compact_expand of the same buffer (and of the crossing rays laid
+           out compactly), and its probe gather at the frame's classify
            probes), with times for kernel, plain version and, where one
            exists, one library call computing the same function (CUDA
            events; for the eval's two kernels, which take less time than
            the host needs to issue them, device time from torch.profiler;
            those two are checked only after the eval phase, at its inputs);
-  profile  (not in the default run) torch.profiler over 3 more steps and
-           one eval frame of the train phase's trainer and of the edit
-           phase's: device time per span and per kernel, busy share, and
-           the device time of each of the port's own kernels.
+  profile  (not in the default run) torch.profiler over 3 more steps of
+           the train phase's trainer and of the edit phase's: device time
+           per span and per kernel, busy share, and the device time of each
+           of the port's own kernels (the eval and edit phases give the
+           same for their frame).
 
 Output: human-readable lines, then a {"kernels": [...]} JSON line, the
 card's name and power limit from nvidia-smi, and last
@@ -87,6 +93,7 @@ line. Without a CUDA device the script exits 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import functools
 import json
@@ -114,7 +121,9 @@ REPLACES = {
     # the stock Pallas TPU flash attention, reached from its flash branch
     "attention_fwd": "dreamfusion_tpu/guidance/sd/layers.py:130",
     "attention_bwd": "dreamfusion_tpu/guidance/sd/layers.py:130",
-    "scatter_add_wide": "dreamfusion_tpu/ops/pallas_scatter.py:735",
+    # the one-hot scatter that dreamfusion_tpu/ops/marching.py::
+    # composite_compact sums its per-ray rows with
+    "composite_compact": "dreamfusion_tpu/ops/pallas_scatter.py:735",
     "probe_select_small": "dreamfusion_tpu/ops/pallas_probe.py:72",
 }
 # kernel A at a level of 4,096 rows stands in for K1b, matmul_scatter_add_oct
@@ -126,7 +135,7 @@ SOURCES = {
     "composite_bwd": "dreamfusion_torch/csrc/fused_composite.cu",
     "attention_fwd": "dreamfusion_torch/csrc/flash_attention.cu",
     "attention_bwd": "dreamfusion_torch/csrc/flash_attention.cu",
-    "scatter_add_wide": "dreamfusion_torch/csrc/scatter_wide.cu",
+    "composite_compact": "dreamfusion_torch/csrc/fused_composite.cu",
     "probe_select_small": "dreamfusion_torch/csrc/probe_select.cu",
 }
 # the kernels of each path the script drives
@@ -134,11 +143,11 @@ TRAIN_KERNELS = ("grid_encoder_bwd", "composite_fwd", "composite_bwd",
                  "attention_fwd", "attention_bwd")
 # (the eval's dense groups, those whose live count fills the K bucket,
 # composite through kernel B-fwd)
-EVAL_KERNELS = ("scatter_add_wide", "probe_select_small", "composite_fwd")
+EVAL_KERNELS = ("composite_compact", "probe_select_small", "composite_fwd")
 # the editing path trains a field without a grid-encoder table
 EDIT_TRAIN_KERNELS = ("composite_fwd", "composite_bwd", "attention_fwd",
                       "attention_bwd")
-EDIT_EVAL_KERNELS = ("scatter_add_wide", "probe_select_small")
+EDIT_EVAL_KERNELS = ("composite_compact", "probe_select_small")
 ENCODER_KERNELS = ("grid_encoder_bwd", "grid_encoder_bwd_rows")
 HASHGRID_POINTS = 524_288          # 4,096 rays x K = 128 samples
 
@@ -161,25 +170,64 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Device time of fn() per call: the summed time of the kernels it
-    launches, from torch.profiler. For calls whose kernels take less time
-    than the host needs to issue them, where CUDA events around a run of
-    calls would time the host."""
-    from torch.profiler import ProfilerActivity, profile
+def device_time_and_launches(fn, reps: int = 20, warmup: int = 3):
+    """(device ms, device launches) of fn() per call: the time and the
+    number of the kernels (and copies) it launches, from torch.profiler.
+    For calls whose kernels take less time than the host needs to issue
+    them, where CUDA events around a run of calls would time the host.
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(getattr(e, "self_device_time_total",
-                        getattr(e, "self_cuda_time_total", 0))
-                for e in prof.key_averages()
-                if str(e.device_type).endswith("CUDA"))
-    return total / 1e3 / reps
+    A warm-up step of the profiler's schedule, whose events are dropped,
+    runs the calls first. fn launches the same kernels on every call, so
+    each kernel's events are a multiple of reps, and the port's kernels'
+    events equal the launches its wrappers counted over the recorded calls
+    (cuda.launch_counts). Where either fails the events were lost or
+    duplicated, and the counts are printed. Each kernel's time is its mean
+    over the events that arrived times its launches a call (its events
+    over reps, rounded, at least 1); a session that saw no kernel is run
+    again."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from dreamfusion_torch.ops import cuda as kcuda
+
+    sources = _own_kernels()
+    for _ in range(3):
+        got = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: got.append(p.key_averages()),
+                     acc_events=True) as prof:
+            for n in (warmup, reps):
+                counted = sum(kcuda.launch_counts.values())
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        counted = sum(kcuda.launch_counts.values()) - counted
+        ms = launches = own = 0
+        uneven = []
+        for e in got[0]:
+            if str(e.device_type).endswith("CUDA") and e.count:
+                own += e.count if _own_source(e.key, sources) else 0
+                if e.count % reps:
+                    uneven.append(f"{e.key[:60]} x{e.count}")
+                per_call = max(1, round(e.count / reps))
+                ms += getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0)) \
+                    / e.count / 1e3 * per_call
+                launches += per_call
+        if uneven or own != counted:
+            log(f"[profile] events lost or duplicated over {reps} calls: "
+                f"the port's kernels {own} events for {counted} counted "
+                f"launches; not a multiple of {reps}: "
+                + ("; ".join(uneven) or "none"))
+        if launches:
+            return ms, launches
+    raise RuntimeError("torch.profiler recorded no kernel of the call")
+
+
+def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device time of fn() per call (device_time_and_launches)."""
+    return device_time_and_launches(fn, reps, warmup)[0]
 
 
 def bound(nbytes: float, flops: float, peak: float = H100_F32_FLOPS):
@@ -457,7 +505,7 @@ def phase_eval(trainer, frames: int = 3):
         stages.append(timings)
         # each shaded group launches kernel C (compact) or B-fwd (dense)
         shaded.append(tuple(kcuda.launch_counts[k] - before[k]
-                            for k in ("scatter_add_wide", "composite_fwd")))
+                            for k in ("composite_compact", "composite_fwd")))
     counts = dict(kcuda.launch_counts)
     dt = sum(walls)
     ms = lambda xs: ", ".join(f"{x * 1e3:.2f}" for x in xs)  # noqa: E731
@@ -484,31 +532,68 @@ def phase_eval(trainer, frames: int = 3):
 
     # frame 1 again (untimed), keeping the inputs of kernels C and D
     captured = {"C": {}, "D": None}
-    scatter_fn, probe_fn = marching.scatter_add_wide, probe.probe_select_small
-
-    def scatter_spy(idx, upd, T):
-        n, _ = captured["C"].get(idx.shape[0], (0, None))
-        captured["C"][idx.shape[0]] = (n + 1, (idx.clone(), upd.clone(), T))
-        return scatter_fn(idx, upd, T)
+    probe_fn = probe.probe_select_small
 
     def probe_spy(table, idx):
         captured["D"] = (table.clone(), idx.clone())
         return probe_fn(table, idx)
 
-    marching.scatter_add_wide, probe.probe_select_small = scatter_spy, probe_spy
+    probe.probe_select_small = probe_spy
     try:
-        staged = trainer._render_orbit_frame(1, size, H, W)
+        with compact_groups(captured["C"]) as groups:
+            staged = trainer._render_orbit_frame(1, size, H, W)
     finally:
-        marching.scatter_add_wide, probe.probe_select_small = (scatter_fn,
-                                                               probe_fn)
+        probe.probe_select_small = probe_fn
     log("[eval] compact budgets (samples in a group: groups) "
         + ", ".join(f"{J:,}: {n}" for J, (n, _) in sorted(captured["C"].items()))
         + f"; classify probes {captured['D'][1].shape[0]:,} into a table of "
         f"{captured['D'][0].shape[0]:,}")
+    log(f"[eval] frame 1: {groups['calls']} compact groups, "
+        f"{groups['launches']} composite_compact launches")
 
     _staged_vs_direct("eval", trainer, 1, [("bf16 table (the default)",
                                             staged, 5e-2, 2e-2)])
+    _profiled(lambda: trainer._render_orbit_frame(1, size, H, W), 1,
+              "eval frame", ("eval/",))
     return counts, captured
+
+
+@contextlib.contextmanager
+def compact_groups(keep=None):
+    """Counts the calls of marching.composite_compact (one per compact
+    group the staged eval shades) and kernel C's launches over the block,
+    which must be equal; keep (a dict) receives, for each budget M, a copy
+    of the inputs of its group with the most samples, as {M: (calls,
+    (samples, cmap, N, T_thresh))}."""
+    from dreamfusion_torch.ops import cuda as kcuda
+    from dreamfusion_torch.ops import marching
+
+    fn = marching.composite_compact
+    out = {"calls": 0, "launches": 0}
+
+    def spy(sigma_c, color_c, t_c, dt_c, cmap, N, T_thresh=0.0):
+        out["calls"] += 1
+        if keep is not None:
+            M = sigma_c.shape[0]
+            n, old = keep.get(M, (0, None))
+            if old is None or int(cmap.cnt.sum()) > int(old[1].cnt.sum()):
+                old = (tuple(x.clone() for x in (sigma_c, color_c, t_c,
+                                                 dt_c)),
+                       marching.CompactMap(*(x.clone() for x in cmap)), N,
+                       T_thresh)
+            keep[M] = (n + 1, old)
+        return fn(sigma_c, color_c, t_c, dt_c, cmap, N, T_thresh)
+
+    n0 = kcuda.launch_counts["composite_compact"]
+    marching.composite_compact = spy
+    try:
+        yield out
+    finally:
+        marching.composite_compact = fn
+    out["launches"] = kcuda.launch_counts["composite_compact"] - n0
+    if out["launches"] != out["calls"] or not out["calls"]:
+        raise AssertionError(f"kernel C must launch once per compact group: "
+                             f"{out}")
 
 
 def _staged_vs_direct(tag, trainer, frame: int, extra_checks=(),
@@ -752,13 +837,17 @@ def phase_edit(guidance=None, steps: int = 10, warmup: int = 2):
         torch.cuda.synchronize()
         timings = {}
         t2 = time.perf_counter()
-        out = trainer._render_orbit_frame(1, size, H, W, timings=timings)
-        torch.cuda.synchronize()
+        with compact_groups() as groups:
+            out = trainer._render_orbit_frame(1, size, H, W, timings=timings)
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t2
         ecounts = dict(kcuda.launch_counts)
         log(f"[edit] {H}x{W} staged eval frame 1: {wall * 1e3:.2f} ms ("
             + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in timings.items())
-            + " ms)")
+            + f" ms); {groups['calls']} compact groups, "
+            f"{groups['launches']} composite_compact launches")
+        _profiled(lambda: trainer._render_orbit_frame(1, size, H, W), 1,
+                  "edit frame", ("eval/",))
         log(f"[edit] eval-frame kernels (2 frames) {json.dumps(ecounts)}")
         if out["image"].shape != (H, W, 3) or not all(
                 bool(torch.isfinite(v).all()) for v in out.values()):
@@ -1173,37 +1262,134 @@ def check_attention(B, N, H, D, gen, device, grad: bool):
     return res
 
 
-def check_scatter_wide(idx, upd, T, label):
-    """Kernel C against index_add_ (its plain version) at one of the eval's
-    compact budgets; atomics and the warp tree sum in another order, so
-    1e-5 of the largest row sum."""
-    from dreamfusion_torch.ops import scatter_wide as sw
+def check_composite_compact(samples, cmap, N, T_thresh, label):
+    """Kernel C (the compact compositor) against composite_compact_plain
+    (the two-pass flat cumsum, then index_add_) at one of the eval's
+    compact budgets. l is log(1 - alpha + 1e-15) in the kernel and
+    log(exp(-tau) + 1e-15) in the plain version, summed in another order:
+    values 1e-5 of the largest per-ray sum, plus one sample's alpha T (<=
+    T_thresh; times t or the colour) on a ray whose live count differs;
+    live counts differ by at most 1, on at most 0.1% of the rays. The
+    plain version runs on the CPU copy of the inputs, where its flat f32
+    cumsum over the whole budget is sequential: the card's parallel scan
+    drifts further (its difference is printed)."""
+    from dreamfusion_torch.ops import fused_composite as fc
+    from dreamfusion_torch.ops import marching
 
-    got = sw.scatter_add_wide_cuda(idx, upd, T)
-    ref = sw.scatter_add_wide_plain(idx, upd, T)
-    torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    tol = 1e-5 * float(ref.abs().max())
-    J, C = upd.shape
-    nonzero = int((upd != 0).any(-1).sum())
-    log(f"[kernels] C scatter_add_wide {label}: J={J:,} ({nonzero:,} with a "
-        f"non-zero update) C={C} T={T:,} max_abs_err {err:.3e} (tol {tol:.3e})")
-    if not err <= tol:
-        raise AssertionError(f"kernel C disagrees with index_add_ ({label})")
-    out = torch.zeros(T, C, device=upd.device)
-    b_ms, b_by = bound(J * (4 + 4 * C) + T * 4 * C, J * C)
-    kernel = lambda: sw.scatter_add_wide_cuda(idx, upd, T)   # noqa: E731
-    res = {"max_abs_err": err, "ms": device_ms(kernel),
-           "plain_ms": device_ms(lambda: sw.scatter_add_wide_plain(idx, upd,
-                                                                   T)),
-           "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": device_ms(lambda: out.index_add_(0, idx, upd))}
-    log(f"[kernels] C device times ({label}; the kernel's include the "
-        f"zeroing of its output): kernel {res['ms']:.4f} ms, plain "
-        f"{res['plain_ms']:.4f} ms, index_add_ {res['library_ms']:.4f} ms, "
-        f"bound {b_ms:.5f} ms ({b_by}); CUDA events over 20 calls "
+    cpu = torch.device("cpu")
+    got = fc.composite_compact_cuda(*samples, cmap, N, T_thresh)
+    on_card = marching.composite_compact_plain(*samples, cmap, N, T_thresh)
+    sig, col, t, dt = (x.to(cpu) for x in samples)
+    ref = marching.composite_compact_plain(
+        sig, col, t, dt, marching.CompactMap(*(x.to(cpu) for x in cmap)), N,
+        T_thresh)
+    got, on_card = ([x.to(cpu) for x in r] for r in (got, on_card))
+    card_drift = max(float((a - b).abs().max())
+                     for a, b in zip(on_card[:3], ref[:3]))
+    M = sig.shape[0]
+    differ = got[3] != ref[3]
+    n_diff, d_max = int(differ.sum()), float((got[3] - ref[3]).abs().max())
+    err, ok = 0.0, n_diff <= 0.001 * N and d_max <= 1
+    for a, b, factor in ((got[0], ref[0], float(col.abs().max())),
+                         (got[1], ref[1], 1.0),
+                         (got[2], ref[2], float(t.abs().max()))):
+        a, b = a.reshape(N, -1), b.reshape(N, -1)
+        gap = (a - b).abs()
+        tol = 1e-5 * b.abs().max() + differ[:, None] * 1.01 * T_thresh * factor
+        err = max(err, float(gap.max()))
+        ok = ok and bool((gap <= tol).all())
+    live = float(ref[3].sum())
+    log(f"[kernels] C composite_compact {label}: M={M:,} N={N:,} "
+        f"T_thresh={T_thresh:g}, live samples {live:,.0f}; max_abs_err "
+        f"{err:.3e} (tol 1e-5 of the largest sum, plus alpha T on a ray "
+        f"whose live count differs); live counts differ on {n_diff} of {N} "
+        f"rays, by at most {d_max:g}; the plain version on the card against "
+        f"it on the CPU: max abs diff {card_drift:.3e} (registers and spills: "
+        f"the [build] lines)")
+    if not ok:
+        raise AssertionError(f"kernel C disagrees with its plain version "
+                             f"({label})")
+    kernel = lambda: fc.composite_compact_cuda(  # noqa: E731
+        *samples, cmap, N, T_thresh)
+    plain = lambda: marching.composite_compact_plain(  # noqa: E731
+        *samples, cmap, N, T_thresh)
+    ms, launches = device_time_and_launches(kernel)
+    plain_ms, plain_launches = device_time_and_launches(plain)
+    # the samples up to each ray's cut read once, the segments and the
+    # rows once
+    b_ms, b_by = bound(live * 24 + N * (16 + 24), live * 14)
+    log(f"[kernels] C device times ({label}): kernel {ms:.4f} ms in "
+        f"{launches} launch a call ({b_ms / ms:.3f} of its bound), "
+        f"plain (the TPU form's prologue and index_add_) {plain_ms:.4f} ms "
+        f"in {plain_launches} launches a call, bound {b_ms:.5f} ms "
+        f"({b_by}); with every sample of the budget read, "
+        f"{bound(M * 24 + N * 40, 0)[0]:.5f} ms; CUDA events over 20 calls "
         f"{cuda_ms(kernel):.4f} ms a call")
-    return res
+    return {"shape": f"{label}: M={M} N={N}", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "plain_launches": plain_launches,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "live_counts_differ": n_diff, "plain_on_card_err": card_drift}
+
+
+def check_compact_vs_b_fwd(samples, cmap, N, T_thresh, label):
+    """Kernel C against kernel B-fwd on compact_expand of the same buffer:
+    chunk k of a segment is chunk k of the expanded ray and the dropped
+    slots read sigma = delta = 0 (l = 0, w = 0), so both walk the same T
+    bits. Per ray, the samples with w > 0 must be as many in both: in B,
+    those where B-bwd's d_rgb is > 0 for g_rgb = (1, 0, 0) (B-bwd's mask is
+    B-fwd's bit for bit); in C, its live prefix less the samples whose
+    alpha is 0. weights_sum, depth and rgb to 1e-6; whether they are the
+    same bits is printed."""
+    from dreamfusion_torch.ops import fused_composite as fc
+    from dreamfusion_torch.ops import marching
+
+    rgb_c, ws_c, dep_c, live = fc.composite_compact_cuda(
+        *samples, cmap, N, T_thresh)
+    sig, col, t, dt = (marching.compact_expand(x, cmap).contiguous()
+                       for x in samples)
+    ws, dep, rgb = fc.composite_fwd_cuda(sig, col, dt, t, T_thresh)
+    z = torch.zeros(N, device=sig.device)
+    g_rgb = torch.zeros(N, 3, device=sig.device)
+    g_rgb[:, 0] = 1.0
+    _, d_rgb = fc.composite_bwd_cuda(sig, col, dt, t, z, z, g_rgb, T_thresh)
+    torch.cuda.synchronize()
+    K = sig.shape[1]
+    prefix = torch.arange(K, device=sig.device)[None, :] < live[:, None]
+    alpha_zero = torch.exp(-(sig * dt)) == 1.0
+    w_pos_c = (prefix & ~alpha_zero).sum(1)
+    w_pos_b = (d_rgb[..., 0] > 0).sum(1)
+    pairs = ((ws_c, ws), (dep_c, dep), (rgb_c, rgb))
+    err = max(float((a - b).abs().max()) for a, b in pairs)
+    same = all(torch.equal(a, b) for a, b in pairs)
+    n_diff = int((w_pos_c != w_pos_b).sum())
+    log(f"[kernels] C vs B-fwd on compact_expand ({label}): rays whose "
+        f"count of samples with w > 0 differs {n_diff} of {N} (live samples "
+        f"with alpha 0: {int((prefix & alpha_zero).sum())}); weights_sum, "
+        f"depth, rgb max abs diff {err:.3e} (tol 1e-6), "
+        f"{'bitwise equal' if same else 'not bitwise equal'}")
+    if n_diff or not err <= 1e-6:
+        raise AssertionError(f"kernel C's mask or sums differ from B-fwd's "
+                             f"({label})")
+    return same
+
+
+def check_compact_crossing(N, K, device):
+    """Kernel C against B-fwd on the crossing rays (crossing_rays: T at
+    sample k* swept across T_thresh in single ulps of sigma) laid out
+    compactly, each ray keeping a seeded count of samples in (k*, K]."""
+    from dreamfusion_torch.ops import marching
+
+    T = 1e-4
+    sig, rgb, dt, ts, kstar = crossing_rays(N, K, T, device)
+    g = torch.Generator(device=device).manual_seed(16)
+    cnt = kstar + 1 + (torch.rand(N, device=device, generator=g)
+                       * (K - kstar)).long()
+    cmap = marching.make_compact_map(cnt, K, int(cnt.sum()))
+    keep = torch.arange(K, device=device)[None, :] < cnt[:, None]
+    samples = tuple(x[keep].contiguous() for x in (sig, rgb, ts, dt))
+    return check_compact_vs_b_fwd(samples, cmap, N, T,
+                                  f"crossing rays, cnt {int(cnt.min())}-"
+                                  f"{int(cnt.max())}")
 
 
 def check_probe(table, idx):
@@ -1308,12 +1494,14 @@ def phase_kernels(trainer, counts, captured=None):
             "phase's inputs, and the eval phase did not run")
     else:
         by_use = sorted(captured["C"].items(), key=lambda kv: -kv[1][0])
-        c = None
-        for J, (n, (idx, upd, T)) in by_use:
-            r = check_scatter_wide(idx, upd, T, f"{n} group(s) at M={J:,}")
-            c = c or r
-        results += [("scatter_add_wide", c),
-                    ("probe_select_small", check_probe(*captured["D"]))]
+        for M, (n, (samples, cmap, N, T_thresh)) in by_use:
+            label = f"{n} group(s) at M={M:,}"
+            c = check_composite_compact(samples, cmap, N, T_thresh, label)
+            c["bitwise_b_fwd"] = check_compact_vs_b_fwd(samples, cmap, N,
+                                                        T_thresh, label)
+            results.append(("composite_compact", c))
+        check_compact_crossing(4096, 128, dev)
+        results.append(("probe_select_small", check_probe(*captured["D"])))
     # launches are counted per wrapper, so each entry of a name carries the
     # name's count; the entries after its first are other shapes of the
     # same kernel, marked shape_variant, and a sum over the line skips them
@@ -1331,7 +1519,8 @@ def phase_kernels(trainer, counts, captured=None):
 
 def _profiled(fn, reps: int, label: str, spans):
     """torch.profiler over reps calls of fn: device time per span (names
-    starting with one of spans) and per kernel, and the busy share."""
+    starting with one of spans) and per kernel, the busy share and the
+    device launches per call."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1374,11 +1563,10 @@ def _profiled(fn, reps: int, label: str, spans):
     own, by_src = [], {}
     sources = _own_kernels()
     for e in kernels:
-        key = e.key.removeprefix("void ")
-        name = key.split("::", 1)[-1].split("(")[0]
-        src = sources.get(name.split("<")[0])
-        if key.startswith("(anonymous namespace)::") and src:
-            own.append((e, name))
+        src = _own_source(e.key, sources)
+        if src:
+            own.append((e, e.key.removeprefix("void ").split("::", 1)[-1]
+                        .split("(")[0]))
             by_src[src] = by_src.get(src, 0.0) + dev_self(e) / reps
     own.sort(key=lambda en: -dev_self(en[0]))
     log(f"[profile] hand-written kernels {sum(by_src.values()):.3f} ms/{label} ("
@@ -1403,15 +1591,22 @@ def _own_kernels():
     return found
 
 
+def _own_source(key: str, sources):
+    """The source of the profiler's kernel `key` when it is one of the
+    port's __global__ functions (sources: _own_kernels()), else None."""
+    key = key.removeprefix("void ")
+    name = key.split("::", 1)[-1].split("(")[0].split("<")[0]
+    if key.startswith("(anonymous namespace)::"):
+        return sources.get(name)
+    return None
+
+
 def phase_profile(trainers, steps: int = 3):
-    """For each (label, trainer): train steps, then one eval frame, under
-    torch.profiler."""
+    """For each (label, trainer): train steps under torch.profiler (the
+    eval and edit phases profile their frame)."""
     for label, trainer in trainers:
-        cfg = trainer.cfg
         _profiled(trainer.train_step, steps, f"{label} step",
                   ("step/", "grid_"))
-        _profiled(lambda: trainer._render_orbit_frame(
-            1, cfg.test_size, cfg.H, cfg.W), 1, f"{label} frame", ("eval/",))
 
 
 def main(argv=None) -> int:

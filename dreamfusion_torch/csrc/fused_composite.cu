@@ -1,7 +1,11 @@
-// Fused volume compositor, forward and analytic backward.
+// Fused volume compositor, forward and analytic backward, and the staged
+// eval's compact compositor.
 //
-// Replaces the TPU kernel dreamfusion_tpu/ops/pallas_composite.py::
-// composite_fused (bodies _fwd_kernel and _bwd_kernel).
+// Replaces the TPU kernels dreamfusion_tpu/ops/pallas_composite.py::
+// composite_fused (bodies _fwd_kernel and _bwd_kernel) and dreamfusion_tpu/
+// ops/pallas_scatter.py::matmul_scatter_add_wide as dreamfusion_tpu/ops/
+// marching.py::composite_compact calls it (the per-ray sums of the compact
+// buffer).
 //
 // Per ray n over its K samples (row-major [N, K], rgb [N, K, 3]):
 //   alpha_k = 1 - exp(-sigma_k * delta_k)
@@ -12,30 +16,45 @@
 // the log-space form of the plain version (ops/fused_composite.py) and of
 // the JAX kernel. T is non-increasing along a ray, so the mask is a prefix.
 //
-// Both kernels run one warp per ray, eight rays a block. Lanes take
+// All three kernels run one warp per ray, eight rays a block. Lanes take
 // consecutive samples, so each chunk of 32 samples loads sigma, delta and
 // t as one 128-byte row each and rgb as three coalesced rows of 32 floats.
 // Any K: lanes past K read sigma = delta = 0 (l = 0, w = 0).
 //
-// The mask, bit for bit the same in both. One __device__ helper,
+// The mask, bit for bit the same in all three. One __device__ helper,
 // chunk_trans, computes a chunk's alpha, l, the inclusive warp scan of l by
 // shuffles, T_k = exp(carry + exclusive scan) and the chunk's log sum; the
 // carry (log T at the chunk's first sample) is the sum of the earlier
 // chunks' log sums, added in chunk order; the walk stops after the chunk
 // whose end has exp(carry) <= T_thresh (warp-uniform: every lane holds the
-// carry). Both kernels call the helper on the same inputs in the same
+// carry). The kernels call the helper on the same inputs in the same
 // order, and its adds and the product sigma * delta are __fadd_rn /
-// __fmul_rn, which the compiler cannot contract into FMAs, so neither
-// kernel's surroundings can change how T is rounded (the build has no
+// __fmul_rn, which the compiler cannot contract into FMAs, so no kernel's
+// surroundings can change how T is rounded (the build has no
 // --use_fast_math). Every sample's T, its mask and the stop are therefore
-// the same bits in the forward and the backward. The TPU kernel gets the
-// same guarantee by keeping an [N, K] transmittance residual; none is
-// stored here.
+// the same bits in the forward, the backward and the compact kernel. The
+// TPU kernel gets the same guarantee by keeping an [N, K] transmittance
+// residual; none is stored here.
 //
 // Forward (kernel B-fwd): per chunk, the helper, the mask and the lane's
-// running sums; the rgb floats a lane loaded belong to samples p / 3 of the
-// chunk, whose w it takes by a shuffle. The five sums are reduced across
-// the warp once at the end.
+// running sums (add_chunk: the rgb floats a lane loaded belong to samples
+// p / 3 of the chunk, whose w it takes by a shuffle). The five sums are
+// reduced across the warp once at the end (warp_totals).
+//
+// Compact (kernel C, the staged eval's compositor): the same walk over a
+// ray's segment [offs[n], offs[n] + cnt[n]) of the ray-major compact
+// buffer (marching.make_compact_map), with B-fwd's add_chunk and
+// warp_totals and a sixth sum, the live count (samples with T > T_thresh).
+// Every ray's row [w, w t, w r, w g, w b, live] is written, zeros for an
+// empty segment: no zeroed output, no atomics. The TPU's form (a flat
+// two-pass cumsum for T, then a one-hot matmul scatter of the per-sample
+// products into rays) exists because a scatter is slow on the TPU; the
+// buffer is ray-major, so here the per-ray sums are a segmented reduction.
+// Chunk k of a segment holds its samples 32k..32k+31, as chunk k of the
+// same ray in B-fwd on compact_expand of the buffer; the slots that the
+// compaction dropped read sigma = delta = 0 there, so l = 0 and w = 0, and
+// every sum B-fwd adds for them is +0. The two kernels' masks and sums are
+// therefore the same bits on the same samples.
 //
 // Backward (kernel B-bwd; the closed form of pallas_composite.py:83-115
 // and of the reference's raymarching.cu:501-693):
@@ -57,9 +76,12 @@
 // rows with the forward's channel bookkeeping.
 //
 // What bounds them on Hopper: bytes. The forward reads 24 bytes per live
-// sample and writes 20 bytes per ray; the backward reads those again and
-// writes 16 bytes per sample slot. At the train shape (N = 4,096) a block
-// of 8 rays gives 512 blocks, all resident at once on the 132 SMs.
+// sample and writes 20 bytes per ray; the compact kernel reads the same
+// per live sample plus 16 bytes of segment per ray and writes 24; the
+// backward reads the forward's bytes again and writes 16 bytes per sample
+// slot. At N = 4,096 rays a block of 8 rays gives 512 blocks, all resident
+// at once on the 132 SMs. The compact kernel replaces the ~50 eager
+// launches of the TPU form's prologue and scatter with one.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,7 +99,7 @@ struct ChunkTrans {
 
 // One chunk of 32 samples of a ray, lane `lane` holding one sample (sigma
 // = delta = 0 past K), given the carry, log T at the chunk's first sample.
-// The one place either kernel computes T: see the header.
+// The one place any of the kernels computes T: see the header.
 __device__ __forceinline__ ChunkTrans chunk_trans(float sg, float d,
                                                   float carry, int lane) {
   const float alpha = 1.0f - expf(-__fmul_rn(sg, d));
@@ -94,6 +116,50 @@ __device__ __forceinline__ ChunkTrans chunk_trans(float sg, float d,
           __shfl_sync(kFull, incl, 31)};
 }
 
+// A lane's running sums over a ray's chunks: w, w t, and w c over the rgb
+// floats p = lane + 32 r of each chunk (channel (lane + 2 r) % 3).
+struct LaneSums {
+  float w = 0.0f, d = 0.0f;
+  float c[3] = {0.0f, 0.0f, 0.0f};
+};
+
+// Adds one chunk's masked weights wk; c_chunk points at the chunk's first
+// rgb float, of which `left` belong to the ray. The products are explicit
+// FMAs, so the kernels that share this helper round them alike.
+__device__ __forceinline__ void add_chunk(LaneSums& s, float wk, float t,
+                                          const float* c_chunk, int left,
+                                          int lane) {
+  s.w = __fadd_rn(s.w, wk);
+  s.d = __fmaf_rn(wk, t, s.d);
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    const int p = lane + 32 * r;
+    const float wp = __shfl_sync(kFull, wk, p / 3);
+    if (p < left) s.c[r] = __fmaf_rn(wp, c_chunk[p], s.c[r]);
+  }
+}
+
+// The warp's totals [w, w t, r, g, b], in every lane: the lane's three rgb
+// sums are one per channel, then a butterfly sum.
+__device__ __forceinline__ void warp_totals(const LaneSums& s, int lane,
+                                            float v[5]) {
+  v[0] = s.w;
+  v[1] = s.d;
+  v[2] = v[3] = v[4] = 0.0f;
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    const int ch = (lane + 2 * r) % 3;
+    if (ch == 0) v[2] = s.c[r];
+    if (ch == 1) v[3] = s.c[r];
+    if (ch == 2) v[4] = s.c[r];
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int i = 0; i < 5; ++i) v[i] += __shfl_xor_sync(kFull, v[i], off);
+  }
+}
+
 __global__ void __launch_bounds__(kRaysPerBlock * 32)
 composite_fwd_kernel(const float* __restrict__ sig,
                      const float* __restrict__ rgb,
@@ -107,9 +173,10 @@ composite_fwd_kernel(const float* __restrict__ sig,
                     (threadIdx.x >> 5);
   if (n >= N) return;                   // the whole warp
   const int64_t o = n * K;
+  // the row's rgb base, out of the loop: forming the 64-bit address per
+  // chunk made this kernel ~20% slower on an H100
   const float* c_row = rgb + 3 * o;
-  // lane's rgb float p = lane + 32 r of a chunk is channel (lane + 2 r) % 3
-  float s_w = 0.0f, s_d = 0.0f, s_c[3] = {0.0f, 0.0f, 0.0f};
+  LaneSums s;
   float carry = 0.0f;                   // log T at the chunk's first sample
   for (int k0 = 0; k0 < K; k0 += 32) {
     const int k = k0 + lane;
@@ -121,37 +188,71 @@ composite_fwd_kernel(const float* __restrict__ sig,
     }
     const ChunkTrans ch = chunk_trans(sg, d, carry, lane);
     const float wk = ch.T > T_thresh ? ch.alpha * ch.T : 0.0f;
-    s_w += wk;
-    s_d += wk * t;
-    const int left = 3 * (K - k0);      // rgb floats of the row from here
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-      const int p = lane + 32 * r;
-      const float wp = __shfl_sync(kFull, wk, p / 3);
-      if (p < left) s_c[r] += wp * c_row[3 * k0 + p];
-    }
+    add_chunk(s, wk, t, c_row + 3 * k0, 3 * (K - k0), lane);
     carry = __fadd_rn(carry, ch.total);
     if (expf(carry) <= T_thresh) break;
   }
-  float v[5] = {s_w, s_d, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-  for (int r = 0; r < 3; ++r) {
-    const int ch = (lane + 2 * r) % 3;
-    v[2] += ch == 0 ? s_c[r] : 0.0f;
-    v[3] += ch == 1 ? s_c[r] : 0.0f;
-    v[4] += ch == 2 ? s_c[r] : 0.0f;
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-    for (int i = 0; i < 5; ++i) v[i] += __shfl_xor_sync(kFull, v[i], off);
-  }
+  float v[5];
+  warp_totals(s, lane, v);
   if (lane == 0) {
     ws[n] = v[0];
     depth[n] = v[1];
     out_rgb[3 * n] = v[2];
     out_rgb[3 * n + 1] = v[3];
     out_rgb[3 * n + 2] = v[4];
+  }
+}
+
+// out[n] = [w, w t, w r, w g, w b, live] over the ray's segment of the
+// compact buffer (sig, dt, ts [M], rgb [M, 3]); segments are clipped to
+// [0, M), so no read leaves the buffer whatever offs and cnt hold.
+__global__ void __launch_bounds__(kRaysPerBlock * 32)
+composite_compact_kernel(const float* __restrict__ sig,
+                         const float* __restrict__ rgb,
+                         const float* __restrict__ dt,
+                         const float* __restrict__ ts,
+                         const int64_t* __restrict__ offs,
+                         const int64_t* __restrict__ cnt,
+                         float* __restrict__ out, int N, int64_t M,
+                         float T_thresh) {
+  const int lane = threadIdx.x & 31;
+  const int64_t n = static_cast<int64_t>(blockIdx.x) * kRaysPerBlock +
+                    (threadIdx.x >> 5);
+  if (n >= N) return;                   // the whole warp
+  const int64_t o = offs[n];
+  int64_t c = (o >= 0 && o < M) ? cnt[n] : 0;   // the segment's length
+  if (c > M - o) c = M - o;
+  const float* c_seg = rgb + 3 * o;
+  LaneSums s;
+  float live = 0.0f;
+  float carry = 0.0f;
+  for (int64_t k0 = 0; k0 < c; k0 += 32) {
+    const int64_t k = k0 + lane;
+    float sg = 0.0f, d = 0.0f, t = 0.0f;
+    if (k < c) {
+      sg = sig[o + k];
+      d = dt[o + k];
+      t = ts[o + k];
+    }
+    const ChunkTrans ch = chunk_trans(sg, d, carry, lane);
+    const bool on = ch.T > T_thresh;
+    const float wk = on ? ch.alpha * ch.T : 0.0f;
+    if (on && k < c) live += 1.0f;
+    const int in_seg = c - k0 < 32 ? static_cast<int>(c - k0) : 32;
+    add_chunk(s, wk, t, c_seg + 3 * k0, 3 * in_seg, lane);
+    carry = __fadd_rn(carry, ch.total);
+    if (expf(carry) <= T_thresh) break;
+  }
+  float v[5];
+  warp_totals(s, lane, v);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    live += __shfl_xor_sync(kFull, live, off);
+  if (lane == 0) {
+    float* row = out + 6 * n;
+#pragma unroll
+    for (int i = 0; i < 5; ++i) row[i] = v[i];
+    row[5] = live;
   }
 }
 
@@ -280,6 +381,21 @@ extern "C" int composite_fwd(const void* sig, const void* rgb, const void* dt,
       static_cast<const float*>(dt), static_cast<const float*>(ts),
       static_cast<float*>(ws), static_cast<float*>(depth),
       static_cast<float*>(out_rgb), N, K, T_thresh);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int composite_compact(const void* sig, const void* rgb,
+                                 const void* dt, const void* ts,
+                                 const void* offs, const void* cnt, void* out,
+                                 int N, long long M, float T_thresh,
+                                 void* stream) {
+  if (N == 0) return 0;
+  composite_compact_kernel<<<blocks_for(N), kRaysPerBlock * 32, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(sig), static_cast<const float*>(rgb),
+      static_cast<const float*>(dt), static_cast<const float*>(ts),
+      static_cast<const int64_t*>(offs), static_cast<const int64_t*>(cnt),
+      static_cast<float*>(out), N, static_cast<int64_t>(M), T_thresh);
   return static_cast<int>(cudaGetLastError());
 }
 

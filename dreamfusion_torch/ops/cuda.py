@@ -37,7 +37,6 @@ SOURCES = {
     "grid_encoder_bwd": "grid_encoder_bwd.cu",
     "fused_composite": "fused_composite.cu",
     "flash_attention": "flash_attention.cu",
-    "scatter_wide": "scatter_wide.cu",
     "probe_select": "probe_select.cu",
 }
 
@@ -49,9 +48,9 @@ launch_counts: Dict[str, int] = {
     "grid_encoder_bwd_rows": 0,
     "composite_fwd": 0,
     "composite_bwd": 0,
+    "composite_compact": 0,
     "attention_fwd": 0,
     "attention_bwd": 0,
-    "scatter_add_wide": 0,
     "probe_select_small": 0,
 }
 

@@ -13,6 +13,8 @@ nerf/renderer.py:446-613).
 - ``render_grid`` / ``shade_march``: field query, fused compositing
   (ops/fused_composite.py, kernels B-fwd/B-bwd on the GPU), background,
   orient loss and the count statistics the trainer's K/M pickers read.
+- ``composite_compact``: the staged eval's compositor on the compact buffer
+  (kernel C on the GPU).
 
 Random draws (march perturbation, light direction, grid jitter) can be
 injected, as everywhere in the port.
@@ -28,10 +30,9 @@ import torch.nn.functional as F
 
 from dreamfusion_torch.cameras import safe_normalize
 from dreamfusion_torch.device import resolve_device
-from dreamfusion_torch.ops import probe
+from dreamfusion_torch.ops import fused_composite, probe
 from dreamfusion_torch.ops.composite import CompositeOut, near_far_from_aabb
 from dreamfusion_torch.ops.fused_composite import composite_fused
-from dreamfusion_torch.ops.scatter_wide import scatter_add_wide
 
 SQRT3 = math.sqrt(3.0)
 
@@ -387,21 +388,31 @@ def compact_expand(vals_c: torch.Tensor, cmap: CompactMap) -> torch.Tensor:
     return _CompactExpand.apply(vals_c, cmap.pos, cmap.fwd_flat, cmap.valid_m)
 
 
+def scatter_add_wide_plain(idx: torch.Tensor, upd: torch.Tensor,
+                           T: int) -> torch.Tensor:
+    """idx [J] int in [0, T), upd [J, C] -> [T, C] f32 row sums
+    (``zeros([T, C]).at[idx].add(upd)``; the contract of
+    dreamfusion_tpu/ops/pallas_scatter.py::matmul_scatter_add_wide, summed
+    in f32 where the TPU kernel rounds the updates to bf16)."""
+    out = torch.zeros(T, upd.shape[1], device=upd.device, dtype=torch.float32)
+    return out.index_add_(0, idx.long(), upd.float())
+
+
 @torch.no_grad()
-def composite_compact(sigma_c, color_c, t_c, dt_c, cmap: CompactMap, N: int,
-                      T_thresh: float = 0.0):
+def composite_compact_plain(sigma_c, color_c, t_c, dt_c, cmap: CompactMap,
+                            N: int, T_thresh: float = 0.0):
     """Alpha-composite directly on the ray-major compact sample buffer
     (marching.py:716-792; the eval path, forward only). Samples that the
     compaction dropped have alpha 0 in the dense path, so this is exact,
     not an approximation.
 
-    Transmittance is a per-ray exclusive prefix of l = log(1 - alpha +
+    Transmittance is a per-ray exclusive prefix of l = log(exp(-tau) +
     1e-15) in the flat [M] buffer, in two passes so the running f32 sum
     stays near zero: pass 1 takes approximate per-ray totals from a plain
     cumsum, pass 2 injects minus the previous ray's total at each ray start.
-    The per-ray sums of [w, w*t, w*rgb, live] are one scatter_add_wide
-    (kernel C on the GPU). Returns (rgb [N,3], weights_sum [N], depth_sum
-    [N], live_counts [N])."""
+    The per-ray sums of [w, w*t, w*rgb, live] are one scatter_add_wide_plain
+    (``index_add_``). Returns (rgb [N,3], weights_sum [N], depth_sum [N],
+    live_counts [N])."""
     tau = sigma_c.float() * dt_c.float()
     alpha = 1.0 - torch.exp(-tau)
     l = torch.log(torch.exp(-tau) + 1e-15)
@@ -423,8 +434,21 @@ def composite_compact(sigma_c, color_c, t_c, dt_c, cmap: CompactMap, N: int,
     color = color_c.float()
     upd = torch.stack([w, w * t_c.float(), w * color[:, 0], w * color[:, 1],
                        w * color[:, 2], live], dim=-1)
-    acc = scatter_add_wide(cmap.ray_of_m.to(torch.int32), upd, N)
+    acc = scatter_add_wide_plain(cmap.ray_of_m, upd, N)
     return acc[:, 2:5], acc[:, 0], acc[:, 1], acc[:, 5]
+
+
+def composite_compact(sigma_c, color_c, t_c, dt_c, cmap: CompactMap, N: int,
+                      T_thresh: float = 0.0):
+    """Composite the compact buffer: (rgb [N,3], weights_sum [N], depth_sum
+    [N], live_counts [N]). Kernel C on a CUDA tensor, the plain two-pass
+    form on a CPU tensor."""
+    if sigma_c.is_cuda:
+        return fused_composite.composite_compact_cuda(
+            *(x.float().contiguous() for x in (sigma_c, color_c, t_c, dt_c)),
+            cmap, N, T_thresh)
+    return composite_compact_plain(sigma_c, color_c, t_c, dt_c, cmap, N,
+                                   T_thresh)
 
 
 def render_grid(fns, grid_state: GridState, rays_o, rays_d, *,
@@ -475,8 +499,8 @@ def shade_march(fns, march: MarchOut, rays_o, rays_d, nears, fars, *, K: int,
     (marching.py:849-1031). compact_M < N*K queries the field at M
     compacted samples instead of all N*K slots; compact_composite (the
     staged eval, forward only) then composites the compact buffer directly
-    (composite_compact, kernel C) instead of expanding it for the fused
-    compositor (kernel B)."""
+    (composite_compact: kernel C, the compact compositor) instead of
+    expanding it for the fused compositor (kernel B)."""
     N = rays_o.shape[0]
     if K < march.ts.shape[1]:
         march = MarchOut(march.ts[:, :K], march.dts[:, :K],

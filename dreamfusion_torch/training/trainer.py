@@ -16,7 +16,8 @@ Every draw of a step can be injected through ``draws`` (see
 Eval and test frames (``Trainer.evaluate`` / ``Trainer.test``) render
 through ``make_staged_grid_eval``: a classify pass over the pooled
 occupancy grid (kernel D), a windowed march of the flagged ray groups with
-a transmittance-live estimate, and a compact shade per group (kernel C),
+a transmittance-live estimate, and a compact shade per group composited
+on the compact buffer in one launch (kernel C, the compact compositor),
 pasted into the frame by ray index.
 
 The step's parts run under ``torch.profiler.record_function`` spans
@@ -227,8 +228,9 @@ def make_staged_grid_eval(cfg: Config, model: _BaseNeRF, H: int,
        sigma-EMA live estimate (margin 1.2) cutting samples past T ~ 1e-4;
        the groups' stats come to the host in one transfer;
     4. shade each group: single cascade at a global compact budget of the
-       group's mean live count (composite_compact, kernel C), several
-       cascades dense at the live bucket (kernel B); paste by ray index.
+       group's mean live count (composite_compact: kernel C, the compact
+       compositor), several cascades dense at the live bucket (kernel B);
+       paste by ray index.
 
     Groups hold cfg.max_ray_batch rays (4,096, the JAX default group).
     Returns render_frame(rays_o, rays_d, grid_state,

@@ -489,26 +489,103 @@ def test_probe_select_kernel_matches_take(dev, T, J):
     assert torch.equal(got_view, got[1:])
 
 
-def test_scatter_add_wide_kernel_matches_index_add(dev):
-    """Kernel C vs index_add_: ray-major runs of every length (0 to 300
-    samples a ray), an invalid tail of id 0 with zero updates, then random
-    ids. Atomics and the warp tree sum in another order: 1e-5 of the
-    largest entry."""
-    from dreamfusion_torch.ops import cuda as kcuda
-    from dreamfusion_torch.ops import scatter_wide as sw
+_COMPACT_COUNTS = (128, 0, 1, 31, 32, 33)
 
-    g = torch.Generator(device=dev).manual_seed(6)
-    T = 4096
-    lens = torch.randint(0, 300, (T,), generator=g, device=dev)
-    runs = torch.repeat_interleave(torch.arange(T, device=dev), lens)
-    tail = torch.zeros(50_000, dtype=torch.long, device=dev)
-    rand = torch.randint(0, T, (10_000,), generator=g, device=dev)
-    idx = torch.cat([runs, tail, rand]).to(torch.int32)
-    upd = torch.rand(idx.shape[0], sw.CHANNELS, generator=g, device=dev)
-    upd[runs.shape[0]:runs.shape[0] + tail.shape[0]] = 0.0
-    n0 = kcuda.launch_counts["scatter_add_wide"]
-    got = sw.scatter_add_wide(idx, upd, T)
-    assert kcuda.launch_counts["scatter_add_wide"] == n0 + 1
-    ref = sw.scatter_add_wide_plain(idx, upd, T)
+
+def _compact_buffer(N, M, dev, seed):
+    """A ray-major compact buffer (marching.make_compact_map, K = 128) of N
+    rays whose marched counts cycle through _COMPACT_COUNTS, at budget M
+    (scaled by floor when M is below the total), with samples on the
+    512-step lattice: sigma delta uniform in [0, 2.7), so segments of 31
+    samples and more cross T_thresh = 1e-4; sigma zero past the valid
+    total."""
+    from dreamfusion_torch.ops import marching
+
+    counts = torch.tensor(_COMPACT_COUNTS, device=dev).repeat(N // 6 + 1)[:N]
+    cm = marching.make_compact_map(counts, 128, M)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt0 = 2 * math.sqrt(3) / 512
+    sig = torch.rand(M, device=dev, generator=g) * 400.0 * cm.valid_m
+    col = torch.rand(M, 3, device=dev, generator=g)
+    t = 0.5 + torch.rand(M, device=dev, generator=g) * 3.0
+    dt = torch.full((M,), dt0, device=dev)
+    return (sig, col, t, dt), cm
+
+
+@pytest.mark.parametrize("N", [1, 4096, 4097])
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("T_thresh", [0.0, 1e-4])
+def test_composite_compact_kernel_matches_plain(dev, N, scaled, T_thresh):
+    """Kernel C (the compact compositor, one launch) against the plain
+    two-pass compositor: segments of 0, 1, 31, 32, 33 and 128 samples, the
+    full budget and one scaled to 60% of the marched total, T_thresh 0
+    and 1e-4. l is log(1 - alpha + 1e-15) in the kernel and log(exp(-tau)
+    + 1e-15) in the plain version, summed in another order: values 1e-5
+    of the largest per-ray sum, plus one sample's alpha T (<= T_thresh) on
+    a ray whose live count differs; live counts differ by at most 1, on at
+    most 0.1% of the rays. The plain version runs on the CPU copy of the
+    inputs: its flat f32 cumsum over the ~150,000 samples is sequential
+    there and within 1e-6 of a float64 evaluation, while the card's
+    parallel scan drifted by up to 8.3e-5 on these inputs (the kernel:
+    5.4e-7)."""
+    from dreamfusion_torch.ops import cuda as kcuda
+    from dreamfusion_torch.ops import marching
+
+    total = sum(_COMPACT_COUNTS[i % 6] for i in range(N))
+    M = int(total * 0.6) if scaled else total + 77
+    samples, cm = _compact_buffer(N, M, dev, seed=N)
+    n0 = kcuda.launch_counts["composite_compact"]
+    got = marching.composite_compact(*samples, cm, N, T_thresh)
+    assert kcuda.launch_counts["composite_compact"] == n0 + 1
+    ref = marching.composite_compact_plain(
+        *(x.cpu() for x in samples),
+        marching.CompactMap(*(x.cpu() for x in cm)), N, T_thresh)
+    got = [x.cpu() for x in got]
+    samples = [x.cpu() for x in samples]
+    assert N == 1 or bool((cm.cnt == 0).any())
+    differ = got[3] != ref[3]
+    assert (got[3] - ref[3]).abs().max() <= 1
+    assert int(differ.sum()) <= 0.001 * N
+    for a, b in zip(got[:3], ref[:3]):
+        a, b = a.reshape(N, -1), b.reshape(N, -1)
+        tol = 1e-5 * b.abs().max() + differ[:, None] * 1.01 * T_thresh * (
+            1.0 + samples[1].max() + samples[2].max())
+        assert ((a - b).abs() <= tol).all()
+    assert float(ref[1].max()) > 0.5
+
+
+def test_composite_compact_kernel_mask_is_b_fwd_mask(dev):
+    """Kernel C against kernel B-fwd on compact_expand of the same buffer:
+    the crossing rays (T at sample k* swept across T_thresh in single ulps
+    of sigma) laid out compactly with cnt in (k*, 128]. Chunk k of a
+    segment is chunk k of the expanded ray and the dropped slots add l = 0
+    and w = 0, so the live counts equal the number of samples B-bwd (whose
+    mask is B-fwd's bit for bit) gives a weight > 0 (every sigma > 0), and
+    weights_sum, depth and rgb are the same bits."""
+    from dreamfusion_torch.ops import fused_composite as fc
+    from dreamfusion_torch.ops import marching
+
+    N, K, T = 4096, 128, 1e-4
+    sig, rgb, dt, ts, kstar = _crossing_rays(N, K, T, dev)
+    g = torch.Generator(device=dev).manual_seed(16)
+    cnt = kstar + 1 + (torch.rand(N, device=dev, generator=g)
+                       * (K - kstar)).long()
+    cm = marching.make_compact_map(cnt, K, int(cnt.sum()))
+    keep = torch.arange(K, device=dev)[None, :] < cnt[:, None]
+    comp = [x[keep].contiguous() for x in (sig, rgb, ts, dt)]
+    rgb_c, ws_c, dep_c, live = fc.composite_compact_cuda(
+        comp[0], comp[1], comp[2], comp[3], cm, N, T)
+    exp = [marching.compact_expand(x, cm).contiguous() for x in comp]
+    ws, dep, col = fc.composite_fwd_cuda(exp[0], exp[1], exp[3], exp[2], T)
+    z = torch.zeros(N, device=dev)
+    gc = torch.zeros(N, 3, device=dev)
+    gc[:, 0] = 1.0
+    _, d_rgb = fc.composite_bwd_cuda(exp[0], exp[1], exp[3], exp[2], z, z,
+                                     gc, T)
     torch.cuda.synchronize()
-    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+    w_pos = (d_rgb[..., 0] > 0).sum(1)
+    live_k = d_rgb[torch.arange(N, device=dev), kstar, 0] > 0
+    assert live_k.any() and not live_k.all()
+    assert torch.equal(live, w_pos.float())
+    for a, b in ((ws_c, ws), (dep_c, dep), (rgb_c, col)):
+        assert torch.equal(a, b)

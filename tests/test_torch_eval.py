@@ -4,7 +4,9 @@ Module by module (same numpy inputs, JAX on the CPU; Pallas kernels in
 interpret mode): the plain versions of kernels C and D against the JAX
 kernels, the pooled classify grid, the coarse hit window, the windowed
 march with and without its density payload, probe_density, the compact
-compositor, the test cameras and the bf16-table encode. Ints and bools
+compositor (and a numpy emulation of kernel C's order against its plain
+version and against kernel B-fwd's on the expanded layout), the test
+cameras and the bf16-table encode. Ints and bools
 match exactly, floats to 1e-5 unless a test says why not. Then the whole
 staged eval at 16 x 16 against the JAX package's direct render_grid (f32
 table 1e-4 / 1e-5, bf16 table 5e-2 / 2e-2, the tolerances of
@@ -28,11 +30,12 @@ from dreamfusion_torch import cameras as tcam
 from dreamfusion_torch.config import Config as TConfig
 from dreamfusion_torch.ops import marching as tmarch
 from dreamfusion_torch.ops import probe as tprobe
-from dreamfusion_torch.ops import scatter_wide as tsw
 from dreamfusion_torch.training import trainer as ttrainer
 from dreamfusion_torch.weights import from_jax_grid_state
 
+from test_torch_cuda import _crossing_rays
 from test_torch_marching import _nerf_pair, _t
+from test_torch_ops import _kernel_b_emulation, _warp_scan, _warp_sum
 
 CPU = torch.device("cpu")
 BOX = [-1.0] * 3 + [1.0] * 3
@@ -110,7 +113,7 @@ def test_scatter_add_wide_plain_matches_jax_interpret_and_oracle():
     idx, n_valid = _ray_major_ids(rng, T, 1500)
     upd = rng.normal(size=(idx.shape[0], 6)).astype(np.float32)
     upd[n_valid:] = 0.0
-    got = tsw.scatter_add_wide(_t(idx), _t(upd), T)
+    got = tmarch.scatter_add_wide_plain(_t(idx), _t(upd), T)
     upd16 = np.zeros((16, idx.shape[0]), np.float32)
     upd16[:6] = upd.T
     ref = np.asarray(matmul_scatter_add_wide(jnp.asarray(idx),
@@ -121,50 +124,6 @@ def test_scatter_add_wide_plain_matches_jax_interpret_and_oracle():
     oracle = np.asarray(jnp.zeros((T, 6)).at[jnp.asarray(idx)].add(
         jnp.asarray(upd)))
     _close(got, oracle, atol=1e-6)
-
-
-def _emulate_kernel_c(idx, upd, T):
-    """numpy emulation of csrc/scatter_wide.cu: per warp of 32 updates,
-    run heads/tails from neighbour ids, the segmented suffix sum in five
-    shuffle steps (shfl_down returns the lane's own value past lane 31),
-    one add per run head and non-zero channel."""
-    J, C = upd.shape
-    out = np.zeros((T, C), np.float32)
-    for w0 in range(0, J, 32):
-        lanes = np.arange(32)
-        live = w0 + lanes < J
-        key = np.where(live, idx[np.minimum(w0 + lanes, J - 1)], -1)
-        v = np.where(live[:, None], upd[np.minimum(w0 + lanes, J - 1)], 0.0
-                     ).astype(np.float32)
-        nxt = np.concatenate([key[1:], key[-1:]])
-        prv = np.concatenate([key[:1], key[:-1]])
-        head = (lanes == 0) | (prv != key)
-        stop = (lanes == 31) | (nxt != key)
-        off = 1
-        while off < 32:
-            src = np.where(lanes + off < 32, lanes + off, lanes)
-            o, ostop = v[src], stop[src]
-            v = np.where(stop[:, None], v, v + o)
-            stop = np.where(stop, stop, ostop)
-            off *= 2
-        for lane in np.nonzero(head & live)[0]:
-            nz = v[lane] != 0.0
-            out[key[lane], nz] += v[lane, nz]
-    return out
-
-
-def test_kernel_c_warp_algorithm_matches_index_add():
-    """Kernel C's algorithm (runs found per warp, not assumed sorted):
-    ray-major runs crossing warp edges, the zero-update tail of id 0, then
-    random ids and a partial last warp; f32 sums in another order, 1e-5."""
-    rng = np.random.default_rng(4)
-    T = 64
-    idx, n_valid = _ray_major_ids(rng, T, 100)
-    idx = np.concatenate([idx, rng.integers(0, T, 77)]).astype(np.int32)
-    upd = rng.uniform(size=(idx.shape[0], 6)).astype(np.float32)
-    upd[n_valid:n_valid + 100] = 0.0
-    ref = tsw.scatter_add_wide_plain(_t(idx), _t(upd), T)
-    _close(_emulate_kernel_c(idx, upd, T), ref, atol=1e-5)
 
 
 # -- marching, eval side -------------------------------------------------------
@@ -248,35 +207,167 @@ def test_probe_density_matches_jax():
            jmarch.probe_density(jnp.asarray(dgrid), o, d, ts, 1.0))
 
 
-@pytest.mark.parametrize("N,K,M,T_thresh,opaque", [
-    (37, 16, 256, 0.0, False),
-    (37, 16, 96, 1e-4, False),
-    (256, 16, 2048, 1e-4, True),
-])
-def test_composite_compact_matches_jax(N, K, M, T_thresh, opaque):
-    """The compact compositor (pattern of test_marching.py:647) against
-    the JAX package's, same compact buffer: values 1e-5, live counts
-    exact. The port's per-ray sums run through scatter_add_wide."""
-    rng = np.random.default_rng(42)
+def _compact_inputs(N, K, M, opaque, seed=42):
+    """A compact buffer of budget M for N rays of up to K + 2 marched
+    samples (numpy f32 samples, zero sigma and delta past the valid total)
+    and its map from both packages, which must be equal."""
+    rng = np.random.default_rng(seed)
     counts = rng.integers(0, K + 3, N).astype(np.int32)
     cm_j = jmarch.make_compact_map(jnp.asarray(counts), K, M)
     cm_t = tmarch.make_compact_map(_t(counts), K, M)
     for a, b in zip(cm_t, cm_j):
         _eq(a, b)
-    Mv = M
     valid_m = np.asarray(cm_j.valid_m)
-    sigma_c = (rng.uniform(size=Mv) * (40.0 if opaque else 3.0)
+    sigma_c = (rng.uniform(size=M) * (40.0 if opaque else 3.0)
                * valid_m).astype(np.float32)
-    color_c = rng.uniform(size=(Mv, 3)).astype(np.float32)
-    t_c = rng.uniform(size=Mv).astype(np.float32) * 2.0 + 0.1
-    dt_c = (rng.uniform(size=Mv) * 0.1 * valid_m).astype(np.float32)
-    ref = jmarch.composite_compact(sigma_c, color_c, t_c, dt_c, cm_j, N,
-                                   T_thresh, use_pallas=False)
-    got = tmarch.composite_compact(_t(sigma_c), _t(color_c), _t(t_c),
-                                   _t(dt_c), cm_t, N, T_thresh)
+    color_c = rng.uniform(size=(M, 3)).astype(np.float32)
+    t_c = rng.uniform(size=M).astype(np.float32) * 2.0 + 0.1
+    dt_c = (rng.uniform(size=M) * 0.1 * valid_m).astype(np.float32)
+    return (sigma_c, color_c, t_c, dt_c), cm_j, cm_t
+
+
+COMPACT_CASES = [(37, 16, 256, 0.0, False), (37, 16, 96, 1e-4, False),
+                 (256, 16, 2048, 1e-4, True)]
+
+
+@pytest.mark.parametrize("N,K,M,T_thresh,opaque", COMPACT_CASES)
+def test_composite_compact_matches_jax(N, K, M, T_thresh, opaque):
+    """The compact compositor (pattern of test_marching.py:647) against
+    the JAX package's, same compact buffer: values 1e-5, live counts
+    exact. The port's per-ray sums run through scatter_add_wide_plain."""
+    samples, cm_j, cm_t = _compact_inputs(N, K, M, opaque)
+    ref = jmarch.composite_compact(*samples, cm_j, N, T_thresh,
+                                   use_pallas=False)
+    got = tmarch.composite_compact(*(_t(x) for x in samples), cm_t, N,
+                                   T_thresh)
     for a, b in zip(got[:3], ref[:3]):
         _close(a, b)
     _eq(got[3], ref[3])
+
+
+@pytest.mark.parametrize("N,K,M,T_thresh,opaque",
+                         COMPACT_CASES + [(256, 16, 2048, 0.0, True)])
+def test_composite_compact_plain_matches_jax_pallas_interpret(N, K, M,
+                                                              T_thresh,
+                                                              opaque):
+    """The port's plain compact compositor against the JAX package's with
+    K3 (matmul_scatter_add_wide) in interpret mode. K3 rounds its updates
+    to bf16 for the matmul, so values are held at 2e-2 of the largest per-ray
+    sum of each output; the live counts (0/1 updates, exact in bf16) exactly."""
+    samples, cm_j, cm_t = _compact_inputs(N, K, M, opaque)
+    ref = jmarch.composite_compact(*samples, cm_j, N, T_thresh,
+                                   use_pallas=True)
+    got = tmarch.composite_compact_plain(*(_t(x) for x in samples), cm_t, N,
+                                         T_thresh)
+    for a, b in zip(got[:3], ref[:3]):
+        b = np.asarray(b)
+        _close(a, b, atol=2e-2 * np.abs(b).max())
+    _eq(got[3], ref[3])
+    assert float(got[1].max()) > 0.1           # rays with content
+
+
+def _emulate_kernel_c(sig, col, t, dt, offs, cnt, T_thresh):
+    """numpy emulation of csrc/fused_composite.cu::composite_compact_kernel,
+    vectorised over rays: one warp per ray over chunks of 32 samples of its
+    segment [offs, offs + cnt) (lanes past the segment read zeros), the
+    chunk helper it shares with B-fwd (inclusive shuffle scan of l =
+    log(1 - alpha + 1e-15), T from the exclusive scan plus the carry, the
+    stop after a chunk that ends at T <= T_thresh), per-lane sums (rgb
+    float p = lane + 32 r of a chunk is sample p // 3's channel p % 3) and
+    one butterfly sum. Returns ([N, 6] rows [w, w t, w rgb, live], [N,
+    max cnt] live mask by segment position)."""
+    f32, one = np.float32, np.float32(1)
+    N = offs.shape[0]
+    lanes = np.arange(32)
+    kmax = int(cnt.max())
+    flat = col.reshape(-1)
+    acc = np.zeros((N, 6, 32), f32)
+    mask = np.zeros((N, kmax), bool)
+    carry = np.zeros(N, f32)
+    going = np.ones(N, bool)
+    for k0 in range(0, kmax, 32):
+        inside = (k0 + lanes)[None, :] < cnt[:, None]
+        m = np.where(inside, offs[:, None] + k0 + lanes[None, :], 0)
+        sg, d, tt = (np.where(inside, x[m], 0).astype(f32)
+                     for x in (sig, dt, t))
+        alpha = (one - np.exp(-(sg * d).astype(f32))).astype(f32)
+        l = np.log((one - alpha + f32(1e-15)).astype(f32)).astype(f32)
+        incl = _warp_scan(l)
+        excl = np.concatenate([np.zeros((N, 1), f32), incl[:, :-1]], 1)
+        T = np.exp((carry[:, None] + excl).astype(f32)).astype(f32)
+        on = (T > f32(T_thresh)) & going[:, None]
+        wk = np.where(on, alpha * T, 0).astype(f32)
+        acc[:, 0] += wk
+        acc[:, 1] += wk * tt
+        left = 3 * np.clip(cnt - k0, 0, 32)
+        for r in range(3):
+            p = lanes + 32 * r
+            ok = p[None, :] < left[:, None]
+            q = np.where(ok, 3 * (offs[:, None] + k0) + p[None, :], 0)
+            contrib = (wk[:, p // 3] * np.where(ok, flat[q], 0)).astype(f32)
+            for ch in range(3):
+                acc[:, 2 + ch] += np.where(p % 3 == ch, contrib, 0).astype(f32)
+        acc[:, 5] += on & inside
+        mask[:, k0:k0 + 32] = (on & inside)[:, :kmax - k0]
+        carry = np.where(going, (carry + incl[:, 31]).astype(f32), carry)
+        going = going & (np.exp(carry) > f32(T_thresh))
+    return _warp_sum(acc), mask
+
+
+@pytest.mark.parametrize("N,K,M,T_thresh,opaque",
+                         COMPACT_CASES + [(256, 16, 2048, 0.0, True),
+                                          (64, 100, 4000, 1e-4, False)])
+def test_kernel_c_order_matches_composite_compact_plain(N, K, M, T_thresh,
+                                                        opaque):
+    """Kernel C's order (a warp scan per ray with a chunk carry, l from
+    1 - alpha, the stop) against the plain two-pass flat cumsum with l from
+    exp(-tau): the two l differ by rounding only, so values 1e-6; live
+    counts exact. The last case has segments of up to 100 samples, so
+    rays span several chunks."""
+    samples, _, cm_t = _compact_inputs(N, K, M, opaque)
+    got, _ = _emulate_kernel_c(*samples, cm_t.offs.numpy(), cm_t.cnt.numpy(),
+                               T_thresh)
+    ref = tmarch.composite_compact_plain(*(_t(x) for x in samples), cm_t, N,
+                                         T_thresh)
+    for a, b in ((got[:, 2:5], ref[0]), (got[:, 0], ref[1]),
+                 (got[:, 1], ref[2])):
+        _close(a, b, atol=1e-6)
+    _eq(got[:, 5], ref[3])
+
+
+def test_kernel_c_mask_is_kernel_b_fwd_mask_on_the_expanded_layout():
+    """On the crossing rays (4,096 rays whose T at sample k* is swept across
+    T_thresh in single ulps of sigma; test_torch_cuda.py::_crossing_rays),
+    laid out compactly with cnt in (k*, 128], kernel C's emulated mask
+    equals kernel B's emulated mask (d_rgb with g_rgb = (1, 0, 0) is w_k)
+    on compact_expand of the same buffer on every ray, and the sums are
+    the same bits: chunk k of a segment is chunk k of the expanded ray,
+    and the dropped slots add l = 0 and w = 0."""
+    N, K, T = 4096, 128, 1e-4
+    sig, rgb, dt, ts, kstar = (x.numpy() for x in
+                               _crossing_rays(N, K, T, torch.device("cpu")))
+    cnt = np.random.default_rng(15).integers(kstar + 1, K + 1)
+    offs = np.cumsum(cnt) - cnt
+    keep = np.arange(K)[None, :] < cnt[:, None]
+    comp = [x[keep] for x in (sig, dt, ts, rgb)]
+    rows, mask_c = _emulate_kernel_c(comp[0], comp[3], comp[2], comp[1],
+                                     offs, cnt, T)
+    cm = tmarch.make_compact_map(_t(cnt), K, int(cnt.sum()))
+    _eq(cm.offs, offs)
+    expanded = [tmarch.compact_expand(_t(x), cm).numpy() for x in comp]
+    z = np.zeros(N, np.float32)
+    g_rgb = np.zeros((N, 3), np.float32)
+    g_rgb[:, 0] = 1.0
+    (ws, dep, col), (_, d_rgb) = _kernel_b_emulation(
+        expanded[0], expanded[3], expanded[1], expanded[2], z, z, g_rgb, T)
+    mask_b = d_rgb[..., 0] > 0
+    live_k = mask_b[np.arange(N), kstar]
+    assert live_k.any() and not live_k.all()
+    _eq(mask_b[:, :mask_c.shape[1]], mask_c)
+    assert not mask_b[:, mask_c.shape[1]:].any()
+    _eq(rows[:, 5], mask_b.sum(1))
+    for a, b in ((rows[:, 0], ws), (rows[:, 1], dep), (rows[:, 2:5], col)):
+        _eq(a, b)
 
 
 def test_sample_test_batch_matches_jax():
@@ -363,27 +454,28 @@ def test_staged_eval_matches_jax_direct_render(bound, tables):
 
 def test_staged_eval_routes_to_the_kernels(monkeypatch):
     """At one cascade the classify probes the pooled 8^3 grid through
-    probe_select_small once a frame and every shaded group sums through
-    scatter_add_wide: the calls the GPU takes kernels D and C for."""
+    probe_select_small once a frame and every shaded group composites
+    through composite_compact: the calls the GPU takes kernels D and C
+    for."""
     jcfg, jm, params, gs, tcfg, tm, tgs = _eval_setup(1.0, "f32")
-    calls = {"probe": [], "scatter": 0}
-    probe_fn, scatter_fn = tprobe.probe_select_small, tmarch.scatter_add_wide
+    calls = {"probe": [], "compact": 0}
+    probe_fn, compact_fn = tprobe.probe_select_small, tmarch.composite_compact
 
     def probe_spy(tab, idx):
         calls["probe"].append(tab.shape[0])
         return probe_fn(tab, idx)
 
-    def scatter_spy(idx, upd, T):
-        calls["scatter"] += 1
-        return scatter_fn(idx, upd, T)
+    def compact_spy(*args):
+        calls["compact"] += 1
+        return compact_fn(*args)
 
     monkeypatch.setattr(tprobe, "probe_select_small", probe_spy)
-    monkeypatch.setattr(tmarch, "scatter_add_wide", scatter_spy)
+    monkeypatch.setattr(tmarch, "composite_compact", compact_spy)
     b = tcam.sample_test_batch(0, 10, tcfg, device=CPU)
     ttrainer.make_staged_grid_eval(tcfg, tm, 16, 16)(
         b["rays_o"][0], b["rays_d"][0], tgs)
     assert calls["probe"] == [8 ** 3]
-    assert calls["scatter"] > 0
+    assert calls["compact"] > 0
 
 
 def test_trainer_evaluate_matches_jax_eval_loss_and_writes_pngs(tmp_path):

@@ -132,8 +132,7 @@ def test_main_trains_on_cpu_when_asked_and_test_raises(tmp_path):
 def test_kernel_wrappers_refuse_cpu_tensors():
     from dreamfusion_torch.ops import flash_attention as fa
     from dreamfusion_torch.ops import fused_composite as fc
-    from dreamfusion_torch.ops import probe
-    from dreamfusion_torch.ops import scatter_wide as sw
+    from dreamfusion_torch.ops import marching, probe
     from dreamfusion_torch.ops.grid_encoder import (
         GridEncoderSpec, _level_consts, grid_encoder_bwd_cuda,
         grid_encoder_bwd_rows_cuda)
@@ -156,9 +155,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         probe.probe_select_small_cuda(torch.zeros(128, dtype=torch.uint8),
                                       torch.zeros(4, dtype=torch.int32))
+    cmap = marching.make_compact_map(torch.tensor([2, 1]), 4, 3)
     with pytest.raises(ValueError, match="CUDA"):
-        sw.scatter_add_wide_cuda(torch.zeros(4, dtype=torch.int32),
-                                 torch.zeros(4, 6), 8)
+        fc.composite_compact_cuda(torch.zeros(3), torch.zeros(3, 3),
+                                  torch.zeros(3), torch.zeros(3), cmap, 2,
+                                  1e-4)
 
 
 def test_checkpoint_roundtrip_and_eval_raises(tmp_path):
