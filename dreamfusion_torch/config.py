@@ -1,10 +1,13 @@
 """Configuration for dreamfusion_torch (counterpart of dreamfusion_tpu/config.py).
 
-The port keeps its own copy, limited to the fields the ``-O`` training path
-(grid backbone, or the editing path ``--backbone dvgo``) and the staged
-eval / 360-degree test render read. ``-O`` = bf16 compute + occupancy-grid renderer + view-dependent
-text (reference main.py:75-79); on the GPU "fp16" means bf16 compute with
-f32 parameters, as in the JAX package.
+The port keeps its own copy, limited to the fields its training paths
+(``-O``: the grid or editing field on the occupancy-grid renderer; ``-O2``:
+the grid or vanilla field on the stratified renderer) and the eval / 360-
+degree test render read. ``-O`` = bf16 compute + occupancy-grid renderer +
+view-dependent text (reference main.py:75-79); ``-O2`` = bf16 compute +
+view-dependent text, stratified renderer (main.py:81-84). On the GPU
+"fp16" means bf16 compute with f32 parameters, as in the JAX package.
+``finalize`` applies the backbone's defaults (main.py:86-89).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ class Config:
     seed: int = 0
     test: bool = False
     eval_interval: int = 10             # eval every N epochs
-    guidance: str = "stable-diffusion"  # 'stable-diffusion' | 'none'
+    guidance: str = "stable-diffusion"  # 'stable-diffusion' | 'clip' | 'none'
     ckpt: str = "latest"                # latest | scratch | <path>
     device: Optional[str] = None        # None = cuda (raises without a GPU)
 
@@ -35,6 +38,8 @@ class Config:
     batch_size: int = 1
     grid_ray: bool = False
     max_steps: int = 512
+    num_steps: int = 64                 # coarse samples/ray (stratified)
+    upsample_steps: int = 64            # importance samples/ray (stratified)
     update_extra_interval: int = 16
     albedo_iters: int = 1000
     uniform_sphere_rate: float = 0.5
@@ -50,7 +55,7 @@ class Config:
     eval_table_bf16: bool = True
 
     # -- model ---------------------------------------------------------------
-    backbone: str = "grid"              # 'grid' | 'dvgo'
+    backbone: str = "grid"              # 'grid' | 'vanilla' | 'dvgo'
     bg_radius: float = 1.4
     density_thresh: float = 10.0
     fp16: bool = True                   # bf16 compute, f32 params
@@ -83,6 +88,7 @@ class Config:
     # -- guidance -------------------------------------------------------------
     guidance_scale: float = 100.0
     sd_weights: Optional[str] = None    # random-full | random-tiny | random-nano
+    clip_weights: Optional[str] = None  # random-tiny (the one buildable)
 
     # -- optimizer --------------------------------------------------------------
     adam_b1: float = 0.9
@@ -107,6 +113,17 @@ class Config:
         """-O: bf16 + occupancy-grid marching + dir text (main.py:75-79)."""
         return cfg.replace(fp16=True, dir_text=True, grid_ray=True)
 
+    @staticmethod
+    def presets_O2(cfg: "Config") -> "Config":
+        """-O2: bf16 + dir text, stratified renderer (main.py:81-84)."""
+        return cfg.replace(fp16=True, dir_text=True)
+
+    def finalize(self) -> "Config":
+        """Backbone-conditional defaults (main.py:86-89)."""
+        if self.backbone == "vanilla":
+            return self.replace(lambda_entropy=0.0, lambda_opacity=1e-3)
+        return self
+
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("dreamfusion_torch")
@@ -115,6 +132,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--negative", default="", type=str)
     p.add_argument("-O", action="store_true",
                    help="preset: bf16 + grid_ray + dir_text")
+    p.add_argument("-O2", action="store_true",
+                   help="preset: bf16 + dir_text (stratified renderer)")
     p.add_argument("--test", action="store_true")
     p.add_argument("--device", default=None, choices=["cuda", "cpu"],
                    help="default cuda; cpu runs the plain PyTorch path")
@@ -128,6 +147,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--grid_ray", "--cuda_ray", dest="grid_ray",
                    action="store_true")
     p.add_argument("--max_steps", type=int, default=d.max_steps)
+    p.add_argument("--num_steps", type=int, default=d.num_steps)
+    p.add_argument("--upsample_steps", type=int, default=d.upsample_steps)
     p.add_argument("--update_extra_interval", type=int,
                    default=d.update_extra_interval)
     p.add_argument("--albedo_iters", type=int, default=d.albedo_iters)
@@ -155,6 +176,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--density_thresh", type=float, default=d.density_thresh)
     p.add_argument("--fp16", action="store_true")
     p.add_argument("--sd_weights", type=str, default=None)
+    p.add_argument("--clip_weights", type=str, default=None)
     p.add_argument("--batch_size", type=int, default=d.batch_size)
     p.add_argument("--w", type=int, default=d.w)
     p.add_argument("--h", type=int, default=d.h)
@@ -186,4 +208,8 @@ def parse_config(argv: Optional[List[str]] = None) -> Config:
         if k in names:
             kw[k] = tuple(v) if k in ("radius_range", "fovy_range") else v
     cfg = Config(**kw)
-    return Config.presets_O(cfg) if ns.O else cfg
+    if ns.O:
+        cfg = Config.presets_O(cfg)
+    elif ns.O2:
+        cfg = Config.presets_O2(cfg)
+    return cfg.finalize()

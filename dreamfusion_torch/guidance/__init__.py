@@ -36,8 +36,8 @@ def none_guidance(device: Optional[torch.device] = None) -> Guidance:
 
 def build_guidance(cfg, device: torch.device,
                    generator: Optional[torch.Generator] = None) -> Guidance:
-    """Dispatch like main.py:134-141 (stable-diffusion on random weights or
-    none; CLIP guidance is not ported yet)."""
+    """Dispatch like main.py:134-141: stable-diffusion or CLIP on random
+    weights, or none."""
     if cfg.guidance == "none" or cfg.text is None:
         return none_guidance(device)
     if cfg.guidance == "stable-diffusion":
@@ -48,4 +48,9 @@ def build_guidance(cfg, device: torch.device,
             guidance_scale=cfg.guidance_scale,
             dtype=torch.bfloat16 if cfg.fp16 else torch.float32,
             device=device, generator=generator)
+    if cfg.guidance == "clip":
+        from dreamfusion_torch.guidance.clip import build_clip_guidance
+
+        return build_clip_guidance(cfg.clip_weights, device=device,
+                                   generator=generator)
     raise NotImplementedError(f"guidance {cfg.guidance!r} is not ported yet")

@@ -3,8 +3,10 @@ dreamfusion_tpu/models/networks.py; reference nerf/network_grid.py).
 
 ``_BaseNeRF`` holds what every field shares (density, background, the
 normalise-and-NaN rule of the normal); ``NeRFGridNetwork`` is the grid
-backbone, ``models/kailu.DVGOEditNetwork`` the editing field, and
-``build_model`` dispatches on ``cfg.backbone``.
+backbone, ``NeRFVanillaNetwork`` the vanilla backbone (reference
+nerf/network.py: frequency encoding, a 5 x 128 ResMLP, autograd normals),
+``models/kailu.DVGOEditNetwork`` the editing field, and ``build_model``
+dispatches on ``cfg.backbone``.
 
 Grid backbone: tiled grid encoder (L=16, C=2, 2^16 table per level,
 desired resolution 2048*bound) + 3x64 ReLU MLP -> (sigma, albedo),
@@ -191,10 +193,104 @@ class NeRFGridNetwork(_BaseNeRF):
         return -torch.stack(grads, dim=-1)
 
 
+class ResBlock(nn.Module):
+    """Linear -> LayerNorm -> + skip -> SiLU (reference network.py:13-41).
+    The skip is a bias-free Linear, present only where the widths differ.
+    LayerNorm's epsilon is flax's 1e-6, not torch's default 1e-5."""
+
+    def __init__(self, dim_in: int, dim_out: int):
+        super().__init__()
+        self.dense = nn.Linear(dim_in, dim_out)
+        self.norm = nn.LayerNorm(dim_out, eps=1e-6)
+        self.skip = (nn.Linear(dim_in, dim_out, bias=False)
+                     if dim_in != dim_out else None)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        lecun_normal_(self.dense.weight, self.dense.in_features, generator)
+        nn.init.zeros_(self.dense.bias)
+        self.norm.reset_parameters()
+        if self.skip is not None:
+            lecun_normal_(self.skip.weight, self.skip.in_features, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.norm(self.dense(x))
+        return F.silu(h + (x if self.skip is None else self.skip(x)))
+
+
+class ResMLP(nn.Module):
+    """(num_layers - 1) ResBlocks named block_0.. and a final Linear
+    dense_out (reference network.py:44-67); float32 throughout."""
+
+    def __init__(self, dim_in: int, dim_out: int, dim_hidden: int,
+                 num_layers: int):
+        super().__init__()
+        self.num_blocks = num_layers - 1
+        for l in range(self.num_blocks):
+            self.add_module(f"block_{l}", ResBlock(
+                dim_in if l == 0 else dim_hidden, dim_hidden))
+        self.dense_out = nn.Linear(dim_hidden, dim_out)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        for l in range(self.num_blocks):
+            getattr(self, f"block_{l}").reset_parameters(generator)
+        lecun_normal_(self.dense_out.weight, self.dense_out.in_features,
+                      generator)
+        nn.init.zeros_(self.dense_out.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        for l in range(self.num_blocks):
+            x = getattr(self, f"block_{l}")(x)
+        return self.dense_out(x)
+
+
+class NeRFVanillaNetwork(_BaseNeRF):
+    """Vanilla backbone (reference nerf/network.py:70-221): frequency
+    encoding of degree 6 (39 dims) into a 5 x 128 ResMLP, float32 even
+    under fp16, as in the JAX package (networks.py:226); the background MLP
+    is float32 too (the JAX module builds it without a dtype). Normals are
+    -d(sum sigma)/dx by autograd (network.py:135-146)."""
+
+    def __init__(self, bound: float = 1.0, bg_radius: float = 1.4,
+                 num_layers: int = 5, hidden_dim: int = 128,
+                 num_layers_bg: int = 2, hidden_dim_bg: int = 64):
+        super().__init__(bound, bg_radius)
+        self.sigma_net = ResMLP(freq_output_dim(3, 6), 4, hidden_dim,
+                                num_layers)
+        self._init_bg_net(num_layers_bg, hidden_dim_bg, torch.float32)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        self.sigma_net.reset_parameters(generator)
+        if self.bg_net is not None:
+            self.bg_net.reset_parameters(generator)
+
+    def common(self, x: torch.Tensor):
+        """x [N,3] in [-bound,bound] -> (sigma [N], albedo [N,3])."""
+        h = self.sigma_net(freq_encode(x, degree=6))
+        sigma = trunc_exp(h[..., 0] + gaussian_blob(x))
+        albedo = torch.sigmoid(h[..., 1:4])
+        return sigma, albedo
+
+    def raw_normal(self, x: torch.Tensor) -> torch.Tensor:
+        """-d(sum sigma)/dx (networks.py:233-238). In training the graph is
+        kept (create_graph), so the normal carries its second-order term to
+        the parameters, as the JAX package's vjp inside value_and_grad
+        does; under no_grad (the eval) the gradient is taken all the same
+        and nothing is kept."""
+        keep = torch.is_grad_enabled()
+        with torch.enable_grad():
+            p = x if x.requires_grad else x.detach().requires_grad_(True)
+            sigma, _ = self.common(p)
+            (gx,) = torch.autograd.grad(sigma.sum(), p, create_graph=keep)
+        return -gx
+
+
 class FieldFns(NamedTuple):
-    """The renderer's view of a field (dreamfusion_tpu/renderer.py FieldFns;
-    the occupancy refresh calls model.density directly)."""
+    """The renderers' view of a field (dreamfusion_tpu/renderer.py
+    FieldFns). density feeds the stratified renderer's coarse pass; the
+    occupancy refresh calls model.density directly."""
     field: Callable
+    density: Callable
     background: Optional[Callable]
     normal: Optional[Callable]
 
@@ -216,13 +312,18 @@ def make_field_fns(model: _BaseNeRF, bg: bool = True,
         return sigma, _shade(albedo, n, light_d, float(ratio),
                              shading_code), n
 
+    def density(x):
+        sigma, albedo = model.common(x, **kw)
+        return {"sigma": sigma, "albedo": albedo}
+
     def normal(x):
         return model.normal(x, **kw)
 
     background = None
     if bg and model.bg_radius > 0:
         background = model.background
-    return FieldFns(field=field, background=background, normal=normal)
+    return FieldFns(field=field, density=density, background=background,
+                    normal=normal)
 
 
 def build_model(cfg, device: Optional[torch.device] = None,
@@ -234,6 +335,8 @@ def build_model(cfg, device: Optional[torch.device] = None,
         dtype = torch.bfloat16 if cfg.fp16 else torch.float32
         model = NeRFGridNetwork(bound=cfg.bound, bg_radius=cfg.bg_radius,
                                 compute_dtype=dtype)
+    elif cfg.backbone == "vanilla":
+        model = NeRFVanillaNetwork(bound=cfg.bound, bg_radius=cfg.bg_radius)
     elif cfg.backbone == "dvgo":
         from dreamfusion_torch.models.kailu import DVGOEditNetwork
 
@@ -241,7 +344,7 @@ def build_model(cfg, device: Optional[torch.device] = None,
     else:
         raise NotImplementedError(
             f"backbone {cfg.backbone!r} not implemented (choose from grid, "
-            "dvgo; the vanilla backbone is not ported yet)")
+            "vanilla, dvgo)")
     model = model.to(resolve_device(device))
     model.reset_parameters(generator)
     return model

@@ -64,3 +64,55 @@ def near_far_from_aabb(rays_o: torch.Tensor, rays_d: torch.Tensor,
     near = torch.where(miss, big, near)
     far = torch.where(miss, big, far)
     return torch.clamp(near, min=min_near), far
+
+
+def linspace(start: float, stop: float, num: int,
+             device: Optional[torch.device] = None) -> torch.Tensor:
+    """num evenly spaced f32 values from start to stop, built by the formula
+    of jnp.linspace as XLA compiles it on the CPU: start * (1 - s) + stop * s
+    with s = i * (1 / (num - 1)), the last value stop itself. The unit grid
+    (start 0, stop 1) is then the JAX package's to the bit, where
+    torch.linspace differs from it by an ulp at some entries; other grids
+    may still differ by an ulp, by XLA's rewrites."""
+    start_t = torch.tensor(start, dtype=torch.float32, device=device)
+    stop_t = torch.tensor(stop, dtype=torch.float32, device=device)
+    if num == 1:
+        return start_t[None]
+    recip = torch.tensor(1.0, dtype=torch.float32) / (num - 1)
+    s = torch.arange(num - 1, dtype=torch.float32, device=device) * recip.to(device)
+    return torch.cat([start_t * (1.0 - s) + stop_t * s, stop_t[None]])
+
+
+def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int,
+               det: bool = False, u: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverse-CDF importance sampling of new z values (nerf/renderer.py:
+    15-49). bins [N, T] bin centres, weights [N, T-1] -> [N, n_samples].
+    det: the fixed grid linspace(0.5 / n, 1 - 0.5 / n, n); otherwise the
+    uniform draws u [N, n_samples], drawn from `generator` when absent.
+    Computes in float32, or in float64 when the weights are float64 (a
+    reference)."""
+    weights = weights.to(torch.float64 if weights.dtype == torch.float64
+                         else torch.float32) + 1e-5
+    pdf = weights / weights.sum(-1, keepdim=True)
+    cdf = torch.cumsum(pdf, -1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1)     # [N, T]
+    shape = cdf.shape[:-1] + (n_samples,)
+    if det:
+        u = linspace(0.5 / n_samples, 1.0 - 0.5 / n_samples, n_samples,
+                     cdf.device).expand(shape)
+    elif u is None:
+        u = torch.rand(shape, generator=generator, device=cdf.device)
+    u = u.to(cdf.device, cdf.dtype).contiguous()
+    inds = torch.searchsorted(cdf.contiguous(), u, right=True)
+    below = torch.clamp(inds - 1, min=0)
+    above = torch.clamp(inds, max=cdf.shape[-1] - 1)
+    cdf_g0 = torch.gather(cdf, -1, below)
+    cdf_g1 = torch.gather(cdf, -1, above)
+    last = bins.shape[-1] - 1
+    bins_g0 = torch.gather(bins, -1, torch.clamp(below, max=last))
+    bins_g1 = torch.gather(bins, -1, torch.clamp(above, max=last))
+    denom = cdf_g1 - cdf_g0
+    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
+    t = (u - cdf_g0) / denom
+    return bins_g0 + t * (bins_g1 - bins_g0)

@@ -1,19 +1,25 @@
 """Training loop, staged eval and 360-degree test render (counterpart of
 dreamfusion_tpu/training/trainer.py; reference nerf/utils.py:151-968).
 
-One step: cameras -> shading schedule -> occupancy-grid render (fused
-compositor) -> SDS guidance -> regularizers -> backward -> Adam, on the
-grid backbone or on the editing field (``--backbone dvgo``, whose
-pretrained scene the Trainer loads at construction). Every 16
-steps the occupancy grid is refreshed and the adaptive sample budgets are
-re-picked from the last step's count statistics, with the JAX package's
-bucket ladder (``_pick_K_bucket``), so a step computes what the JAX step
-computes. PyTorch runs eagerly, so no per-bucket program cache is kept.
+One step: cameras -> shading schedule -> render -> guidance (SDS or CLIP)
+-> regularizers -> backward -> Adam. The renderer is the occupancy-grid
+renderer (``-O``, ``cfg.grid_ray``; fused compositor) on the grid
+backbone or the editing field (``--backbone dvgo``, whose pretrained scene
+the Trainer loads at construction), or the stratified renderer (``-O2``,
+renderer.render_stratified, path A) on the grid or vanilla backbone. On
+the grid renderer the occupancy grid is refreshed every 16 steps and the
+adaptive sample budgets are re-picked from the last step's count
+statistics, with the JAX package's bucket ladder (``_pick_K_bucket``), so
+a step computes what the JAX step computes. PyTorch runs eagerly, so no
+per-bucket program cache is kept. A stratified Trainer has no grid state,
+no refresh and no budgets.
 
 Every draw of a step can be injected through ``draws`` (see
 ``make_grads_fn``); absent draws come from the trainer's generators.
 
-Eval and test frames (``Trainer.evaluate`` / ``Trainer.test``) render
+Eval and test frames (``Trainer.evaluate`` / ``Trainer.test``) of the
+stratified renderer render in chunks of ``cfg.max_ray_batch`` rays
+(``make_eval_render``); those of the grid renderer render
 through ``make_staged_grid_eval``: a classify pass over the pooled
 occupancy grid (kernel D), a windowed march of the flagged ray groups with
 a transmittance-live estimate, and a compact shade per group composited
@@ -59,6 +65,7 @@ from dreamfusion_torch.ops.marching import (SQRT3, GridState,
                                             max_pooled_stride, pool_occ,
                                             refresh_partial, render_grid,
                                             shade_march, update_grid)
+from dreamfusion_torch.renderer import render_rays_chunked, render_stratified
 from dreamfusion_torch.training.optimizers import build_optimizer
 
 K_LADDER = (16, 32, 48, 64, 96, 128, 192, 256)
@@ -91,14 +98,15 @@ def make_grads_fn(cfg: Config, model: _BaseNeRF, guidance: Guidance,
                   compact_M: Optional[int] = None):
     """grads_fn(step, text_z, grid_state, draws=None, generator=None,
     host_generator=None) -> (loss, metrics); leaves the gradients in the
-    parameters' .grad.
+    parameters' .grad. The renderer is the grid renderer when cfg.grid_ray
+    (grid_K, compact_M and grid_state apply to it), else the stratified
+    renderer (trainer.py:112-120; grid_state unused).
 
     draws (all optional): radius, u_sphere, u_orbit, u_select, fov (camera),
-    shade_u (float), bg [B*h*w, 3], light_n [3], perturb_u [B*h*w],
-    smooth_n, and the SDS draws vae_eps, t, noise."""
-    if not cfg.grid_ray:
-        raise NotImplementedError("only the occupancy-grid renderer (-O) is "
-                                  "ported; the stratified renderer is queued")
+    shade_u (float), bg [B*h*w, 3], light_n [3], perturb_u ([B*h*w] on the
+    grid renderer, [B*h*w, num_steps] on the stratified one), pdf_u
+    [B*h*w, upsample_steps] (stratified), smooth_n, and the SDS draws
+    vae_eps, t, noise."""
     compute_orient = cfg.lambda_orient > 0
     compute_smooth = cfg.lambda_smooth > 0
     grid_K = grid_K or cfg.grid_K
@@ -127,17 +135,22 @@ def make_grads_fn(cfg: Config, model: _BaseNeRF, guidance: Guidance,
         if not compute_smooth:
             fns = fns._replace(normal=None)
         with record_function("step/render"):
-            out = render_grid(
-                fns, grid_state, rays_o, rays_d, bound=cfg.bound,
-                min_near=cfg.min_near, max_steps=cfg.max_steps, K=grid_K,
-                bg_radius=cfg.bg_radius,
-                ambient_ratio=ratio, shading_code=code, bg_color=bg_color,
-                perturb=True,
-                compute_normal_losses=compute_orient or compute_smooth,
-                compact_M=compact_M, generator=generator,
-                light_n=draws.get("light_n"),
-                perturb_u=draws.get("perturb_u"),
-                smooth_n=draws.get("smooth_n"))
+            kw = dict(bound=cfg.bound, min_near=cfg.min_near,
+                      bg_radius=cfg.bg_radius, ambient_ratio=ratio,
+                      shading_code=code, bg_color=bg_color, perturb=True,
+                      compute_normal_losses=compute_orient or compute_smooth,
+                      generator=generator, light_n=draws.get("light_n"),
+                      perturb_u=draws.get("perturb_u"),
+                      smooth_n=draws.get("smooth_n"))
+            if cfg.grid_ray:
+                out = render_grid(fns, grid_state, rays_o, rays_d,
+                                  max_steps=cfg.max_steps, K=grid_K,
+                                  compact_M=compact_M, **kw)
+            else:
+                out = render_stratified(
+                    fns, rays_o, rays_d, num_steps=cfg.num_steps,
+                    upsample_steps=cfg.upsample_steps,
+                    pdf_u=draws.get("pdf_u"), **kw)
 
         pred_rgb = out["image"].reshape(B, cfg.h, cfg.w, 3)
         pred_ws = out["weights_sum"].reshape(B, N)
@@ -169,7 +182,8 @@ def make_grads_fn(cfg: Config, model: _BaseNeRF, guidance: Guidance,
         metrics["mean_opacity"] = pred_ws.detach().mean()
         metrics["shading_code"] = code
         for k in ("count_q95", "live_q95", "mean_count", "n_field_samples"):
-            metrics[k] = out[k]
+            if k in out:
+                metrics[k] = out[k]
 
         for p in model.parameters():
             p.grad = None
@@ -367,14 +381,44 @@ def make_staged_grid_eval(cfg: Config, model: _BaseNeRF, H: int,
 def make_eval_render(cfg: Config, model: _BaseNeRF, H: int, W: int):
     """Full-frame eval renderer: white background unless the model has a
     background net, albedo shading, no perturbation (trainer.py:862-934).
-    The grid renderer takes the staged eval (the port has no device mesh);
-    the stratified renderer is not ported yet."""
-    if not cfg.grid_ray:
-        raise NotImplementedError(
-            "only the grid renderer's staged eval is ported; the stratified "
-            "renderer and the ray-sharded eval are queued (ROADMAP.md, "
-            "queue 1 items 12-13)")
-    return make_staged_grid_eval(cfg, model, H, W)
+    The grid renderer takes the staged eval (the port has no device mesh).
+    The stratified renderer renders chunks of min(H W, cfg.max_ray_batch)
+    rays with light_d = normalize(rays_o[0]), the deterministic sample_pdf
+    grid and the f32 table (the bf16 view is the staged grid eval's only).
+    Returns render_frame with make_staged_grid_eval's signature (grid_state
+    unused; timings receives the frame's synced wall as "render")."""
+    if cfg.grid_ray:
+        return make_staged_grid_eval(cfg, model, H, W)
+    fns = make_field_fns(model)._replace(normal=None)
+    chunk = min(H * W, cfg.max_ray_batch)
+
+    @torch.no_grad()
+    def render_frame(rays_o, rays_d, grid_state=None,
+                     shading_code: int = SHADING_ALBEDO,
+                     ambient_ratio: float = 1.0, bg_color=None, light_d=None,
+                     timings: Optional[Dict[str, float]] = None):
+        dev = rays_o.device
+        if light_d is None:
+            light_d = cameras.safe_normalize(rays_o[0])
+
+        def render_chunk(o, d):
+            bg = (None if bg_color is None else torch.as_tensor(
+                bg_color, dtype=torch.float32, device=dev).expand(
+                    o.shape[0], 3))
+            return render_stratified(
+                fns, o, d, bound=cfg.bound, min_near=cfg.min_near,
+                num_steps=cfg.num_steps, upsample_steps=cfg.upsample_steps,
+                bg_radius=cfg.bg_radius, light_d=light_d,
+                ambient_ratio=ambient_ratio, shading_code=shading_code,
+                bg_color=bg, perturb=False)
+
+        with _stage("render", timings, dev):
+            out = render_rays_chunked(render_chunk, rays_o, rays_d, chunk)
+        return {"image": out["image"].reshape(H, W, 3),
+                "depth": out["depth"].reshape(H, W),
+                "weights_sum": out["weights_sum"].reshape(H, W)}
+
+    return render_frame
 
 
 def write_png(path: str, img: np.ndarray) -> None:
@@ -397,9 +441,10 @@ def write_png(path: str, img: np.ndarray) -> None:
 
 
 class Trainer:
-    """Experiment driver: workspace, occupancy grid, adaptive budgets,
-    checkpoints, eval dumps and the 360-degree test render (API of the
-    reference Trainer, nerf/utils.py:151-968)."""
+    """Experiment runner: workspace, occupancy grid and adaptive budgets
+    (grid renderer), checkpoints, eval dumps and the 360-degree test render
+    (API of the reference Trainer, nerf/utils.py:151-968). ``renderer`` is
+    "grid" or "stratified", by cfg.grid_ray (trainer.py:952)."""
 
     def __init__(self, name: str, cfg: Config,
                  model: Optional[_BaseNeRF] = None,
@@ -421,6 +466,7 @@ class Trainer:
         self.guidance = guidance if guidance is not None else build_guidance(
             cfg, self.device, self.gen)
         self.workspace = workspace or cfg.workspace
+        self.renderer = "grid" if cfg.grid_ray else "stratified"
         os.makedirs(self.workspace, exist_ok=True)
         self.ckpt_dir = os.path.join(os.path.abspath(self.workspace),
                                      "checkpoints")
@@ -429,8 +475,9 @@ class Trainer:
 
         self.opt, self.lr_sched = build_optimizer(cfg, self.model)
         self.step = 0
-        self.grid_state = init_grid_state(cfg.cascade, cfg.grid_size,
-                                          self.device)
+        self.grid_state: Optional[GridState] = (
+            init_grid_state(cfg.cascade, cfg.grid_size, self.device)
+            if self.renderer == "grid" else None)
         self.text_z = self._prepare_text_embeddings()
         self._cur_grid_K = cfg.grid_K
         self._cur_compact_M: Optional[int] = None
@@ -537,7 +584,8 @@ class Trainer:
         metrics = None
         while self.step < max_steps:
             step = self.step
-            if step % cfg.update_extra_interval == 0:
+            if (self.renderer == "grid"
+                    and step % cfg.update_extra_interval == 0):
                 self.update_grid(step // cfg.update_extra_interval)
                 if cfg.grid_K_adaptive and metrics is not None:
                     self._repick_budgets(metrics)
@@ -565,7 +613,7 @@ class Trainer:
 
     def _render_orbit_frame(self, i: int, size: int, H: int, W: int,
                             timings: Optional[Dict[str, float]] = None):
-        """Frame i of a size-frame orbit at H x W through the staged eval."""
+        """Frame i of a size-frame orbit at H x W through make_eval_render."""
         batch = cameras.sample_test_batch(i, size, self.cfg, H=H, W=W,
                                           device=self.device)
         return self._get_eval_render(H, W)(
@@ -650,7 +698,8 @@ class Trainer:
             "model": self.model.state_dict(),
             "optimizer": self.opt.state_dict(),
             "lr_sched": self.lr_sched.state_dict(),
-            "grid_state": self.grid_state._asdict(),
+            "grid_state": (None if self.grid_state is None
+                           else self.grid_state._asdict()),
             "budgets": (self._cur_grid_K, self._cur_compact_M,
                         self._mean_count_ema),
             "gen": self.gen.get_state(),
@@ -690,8 +739,9 @@ class Trainer:
         self.model.load_state_dict(ck["model"])
         self.opt.load_state_dict(ck["optimizer"])
         self.lr_sched.load_state_dict(ck["lr_sched"])
-        self.grid_state = GridState(**{k: v.to(self.device)
-                                       for k, v in ck["grid_state"].items()})
+        if ck["grid_state"] is not None:
+            self.grid_state = GridState(**{k: v.to(self.device) for k, v
+                                           in ck["grid_state"].items()})
         (self._cur_grid_K, self._cur_compact_M,
          self._mean_count_ema) = ck["budgets"]
         self.gen.set_state(ck["gen"].cpu())

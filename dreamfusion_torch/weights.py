@@ -8,11 +8,14 @@ module names, so the conversion is mechanical:
 - Dense ``kernel`` [in, out] -> ``weight`` [out, in];
 - Conv ``kernel`` HWIO -> ``weight`` OIHW;
 - GroupNorm / LayerNorm ``scale`` -> ``weight``;
-- ``bias``, the grid table ``embeddings`` and the DVGO grids ``density`` and
-  ``k0`` (4-D, but not kernels) unchanged.
-It covers the NeRF fields (tables, MLPs, background net; the editing
-field's ``main.density``, ``main.k0``, ``main.rgbnet.*``) and the SD UNet
-and VAE.
+- ``bias``, the grid table ``embeddings``, the DVGO grids ``density`` and
+  ``k0`` (4-D, but not kernels), an ``embedding`` table and CLIP's
+  ``class_embedding`` and ``logit_scale`` unchanged.
+It covers the NeRF fields (tables, MLPs, background net; the vanilla
+field's ``sigma_net.block_i.{dense,norm}``, ``block_0.skip`` and
+``dense_out``; the editing field's ``main.density``, ``main.k0``,
+``main.rgbnet.*``), the SD UNet and VAE, and the CLIP model of
+guidance/clip.py (a FlaxCLIPModel's tree).
 VAE decoder parameters are dropped: the port's VAE is encoder-only.
 
 ``from_jax_grid_state(state)`` carries the occupancy-grid state across, so

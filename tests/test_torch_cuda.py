@@ -589,3 +589,110 @@ def test_composite_compact_kernel_mask_is_b_fwd_mask(dev):
     assert torch.equal(live, w_pos.float())
     for a, b in ((ws_c, ws), (dep_c, dep), (rgb_c, col)):
         assert torch.equal(a, b)
+
+
+def test_grid_encoder_bwd_kernel_on_stratified_samples(dev):
+    """Kernel A vs index_add_ at the -O2 step's layout: 4,096 rays x 128
+    samples between each ray's near and far, clipped to the box, so every
+    one of the 524,288 samples is inside and live; 1e-5 of the largest
+    entry."""
+    from dreamfusion_torch.ops import grid_encoder as ge
+
+    spec = ge.GridEncoderSpec(**_MAIN, **_TILED)
+    g = torch.Generator(device=dev).manual_seed(3)
+    o = torch.nn.functional.normalize(
+        torch.randn(4096, 1, 3, device=dev, generator=g), dim=-1) * 1.4
+    d = torch.nn.functional.normalize(
+        torch.rand(4096, 1, 3, device=dev, generator=g) * 0.6 - 0.3 - o, dim=-1)
+    z = 0.4 + 2.0 * torch.sort(torch.rand(4096, 128, 1, device=dev,
+                                          generator=g), 1).values
+    x = (o + d * z).clamp(-1.0, 1.0).reshape(-1, 3)
+    base, w, _ = spec.residuals(x)
+    cot = torch.randn(x.shape[0], 16, 2, device=dev, generator=g)
+    consts = ge._level_consts(spec, dev)
+    d_k = ge.grid_encoder_bwd_cuda(base, w, cot, consts)
+    d_p = ge.grid_encoder_bwd_plain(base, w, cot, consts)
+    torch.cuda.synchronize()
+    assert (d_k - d_p).abs().max() <= 1e-5 * d_p.abs().max()
+
+
+def test_o2_step_on_the_gpu_matches_the_cpu(dev, monkeypatch):
+    """One small lambertian -O2 step (grid field, 16 x 16 rays, 16 + 16
+    samples, f32, a fixed positive projection of the image as the
+    guidance) on the GPU against the same step on the CPU with the same
+    weights and draws, the CPU taking the GPU step's importance samples
+    (sample_pdf follows the last bits of the coarse weights). The loss and
+    each gradient leaf (L2-relative) are held to 1e-4 or 3x the most that
+    CPU control steps move them: the camera radius changed by 2^-24, and
+    the density MLP's outputs moved by 2^-23 (the finite-difference
+    normals of a young field turn with an ulp of sigma). Kernel A
+    launches 7 times."""
+    import copy
+
+    from dreamfusion_torch import renderer
+    from dreamfusion_torch.config import Config
+    from dreamfusion_torch.guidance import Guidance
+    from dreamfusion_torch.models.networks import build_model
+    from dreamfusion_torch.ops import cuda as kcuda
+    from dreamfusion_torch.training import trainer as tr
+
+    cfg = Config(text="x", h=16, w=16, dir_text=True, fp16=False,
+                 num_steps=16, upsample_steps=16, albedo_iters=0)
+    cpu = torch.device("cpu")
+    m_cpu = build_model(cfg, cpu, torch.Generator().manual_seed(0))
+    m_gpu = copy.deepcopy(m_cpu).to(dev)
+    rng = np.random.default_rng(0)
+    N = cfg.h * cfg.w
+    G = torch.from_numpy(rng.uniform(size=(1, 16, 16, 3)).astype(np.float32))
+    draws = {"radius": [1.2], "u_sphere": [[0.3, 0.6, 0.2]],
+             "u_orbit": [[0.5, 0.25]], "u_select": [0.7], "fov": 50.0,
+             "bg": rng.uniform(size=(N, 3)), "light_n": rng.normal(size=3),
+             "perturb_u": rng.uniform(size=(N, 16)),
+             "pdf_u": rng.uniform(size=(N, 16))}
+    pdf, sampled = renderer.sample_pdf, {}
+
+    def step(model, device, scale=1.0, noise=None):
+        def pdf_fixed(*args, **kw):
+            if "z" not in sampled:
+                sampled["z"] = pdf(*args, **kw).cpu()
+            return sampled["z"].to(device)
+
+        monkeypatch.setattr(renderer, "sample_pdf", pdf_fixed)
+        g = torch.Generator().manual_seed(noise or 0)
+        hook = model.sigma_net.register_forward_hook(
+            lambda mod, inp, out: out + 2.0 ** -23 * (torch.randint(
+                0, 2, out.shape, generator=g) * 2 - 1).to(out.device)
+            if noise is not None else None)
+        guid = Guidance("projection", {}, None,
+                        lambda tz, rgb, draws=None, gen=None:
+                        (rgb * G.to(rgb.device)).mean())
+        d = {k: torch.as_tensor(np.asarray(v)).float().to(device)
+             for k, v in draws.items()}
+        d["radius"] = d["radius"] * scale
+        d["shade_u"] = 0.3
+        try:
+            loss, _ = tr.make_grads_fn(cfg, model, guid)(
+                1, torch.zeros(6, 1, device=device), None, draws=d)
+        finally:
+            hook.remove()
+        return float(loss), {k: p.grad.cpu() for k, p in
+                             model.named_parameters()}
+
+    def l2(a, b):
+        return {k: float((a[k] - b[k]).norm() / b[k].norm().clamp_min(1e-30))
+                for k in b}
+
+    n0 = kcuda.launch_counts["grid_encoder_bwd"]
+    lg, gg = step(m_gpu, dev)
+    assert kcuda.launch_counts["grid_encoder_bwd"] == n0 + 7
+    lc, gc = step(m_cpu, cpu)
+    ctrl, ctrl_loss = {k: 0.0 for k in gc}, 0.0
+    for kw in (dict(scale=1 + 2.0 ** -24), dict(scale=1 - 2.0 ** -24),
+               dict(noise=1), dict(noise=2)):
+        lp, gp = step(m_cpu, cpu, **kw)
+        ctrl = {k: max(ctrl[k], v) for k, v in l2(gp, gc).items()}
+        ctrl_loss = max(ctrl_loss, abs(lp - lc))
+    assert abs(lg - lc) <= max(1e-4 * abs(lc), 3 * ctrl_loss)
+    gap = l2(gg, gc)
+    for k in gc:
+        assert gap[k] <= max(1e-4, 3 * ctrl[k]), (k, gap[k], ctrl[k])

@@ -415,8 +415,12 @@ def test_parse_config_and_trainer_checkpoint_round_trip(tmp_path):
     assert (cfg.backbone, cfg.pretrained_dvgo) == ("dvgo", path)
     assert cfg.grid_ray and cfg.dir_text and cfg.fp16
     assert parse_config([]).backbone == "grid"
+    # the vanilla backbone is built since path A landed; a backbone the port
+    # does not know is refused, and the message lists the choices
+    assert type(t_build_model(cfg.replace(backbone="vanilla"), CPU)
+                ).__name__ == "NeRFVanillaNetwork"
     with pytest.raises(NotImplementedError, match="vanilla"):
-        t_build_model(cfg.replace(backbone="vanilla"), CPU)
+        t_build_model(cfg.replace(backbone="tcnn"), CPU)
 
     cfg = cfg.replace(text="x", guidance="none", h=8, w=8, grid_size=8,
                       max_steps=32, iters=2, H=8, W=8, test_size=1,
