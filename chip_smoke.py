@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases build,hashgrid,edit,kernels
     python3 chip_smoke.py --phases build,train,eval,kernels,profile
     python3 chip_smoke.py --phases build,o2,kernels      # path A only
+    python3 chip_smoke.py --phases build,options,dp,kernels   # slice 9
 
 Phases:
   build    compile every CUDA kernel of the main path from
@@ -76,7 +77,26 @@ Phases:
            vanilla field (5 x 128 ResMLP) with CLIP random-tiny, 5 steps
            with --albedo_iters 2 (autograd normals and their second-order
            term at 524,288 samples): finite losses, steps/s and peak memory;
-           it launches no hand-written kernel;
+           it launches no hand-written kernel; small also holds one Shampoo
+           update on the card against the CPU (small_shampoo);
+  options  the train options at full width (grid field, SD random-full,
+           64x64): (a) -O --dt_gamma 1/128 --jitter_pose --ema_decay 0.95,
+           10 steps: kernel F exactly once a step, A, B and K5 launched, the
+           EMA equal to its chain recomputed after each step, then an
+           800x800 orbit frame through the staged eval's march-everything
+           fallback (F once per 4,096-ray group, B-fwd once per group with
+           an emit; its device launches under torch.profiler) against a
+           direct full-K render_grid (f32 table 1e-4 / 1e-5, the default
+           bf16 view 5e-2 / 2e-2); (b) -O --optimizer shampoo, 12 steps
+           (refreshes at counts 1 and 10): steps/s, the refresh steps'
+           walls, peak memory, finite losses, parameters moved;
+  dp       two data-parallel ranks on the one card (gloo; parallel/jobs.py
+           train_job through sharding.spawn), full-width -O with SD
+           random-full, 3 steps: the first step's averaged gradients equal
+           the mean of the ranks' own, parameters and grid the same bits on
+           both ranks after every step, a ray-sharded 800x800 frame equal
+           to rank 0's direct render_grid (1e-6); steps/s and the
+           all-reduce's time;
   kernels  each kernel against its plain PyTorch version on the card at the
            main paths' shapes (grid-encoder scatter at the dense and the
            compacted steps' sample counts and all 16 level sizes, plus a
@@ -96,8 +116,12 @@ Phases:
            groups used, against its plain version and against B-fwd on
            compact_expand of the same buffer (and of the crossing rays laid
            out compactly), and its probe gather at the frame's classify
-           probes), with times for kernel, plain version and, where one
-           exists, one library call computing the same function (CUDA
+           probes), and kernel F (the cone march, no Pallas counterpart)
+           bitwise against its plain version at the train shape (4,096
+           jittered, perturbed rays of the options phase's grid, max_steps
+           512, K 128) and on a 4,096-ray eval chunk, with times for
+           kernel, plain version and, where one exists, one library call
+           computing the same function (CUDA
            events; for the eval's two kernels, which take less time than
            the host needs to issue them, device time from torch.profiler;
            those two are checked only after the eval phase, at its inputs);
@@ -151,6 +175,8 @@ REPLACES = {
     # composite_compact sums its per-ray rows with
     "composite_compact": "dreamfusion_tpu/ops/pallas_scatter.py:735",
     "probe_select_small": "dreamfusion_tpu/ops/pallas_probe.py:72",
+    # no Pallas counterpart: the JAX package's lax.scan cone march
+    "march_cone": "dreamfusion_tpu/ops/marching.py:248",
 }
 # kernel A at a level of 4,096 rows stands in for K1b, matmul_scatter_add_oct
 K1B_REPLACES = "dreamfusion_tpu/ops/pallas_scatter.py:645"
@@ -163,6 +189,7 @@ SOURCES = {
     "attention_bwd": "dreamfusion_torch/csrc/flash_attention.cu",
     "composite_compact": "dreamfusion_torch/csrc/fused_composite.cu",
     "probe_select_small": "dreamfusion_torch/csrc/probe_select.cu",
+    "march_cone": "dreamfusion_torch/csrc/march_cone.cu",
 }
 # the kernels of each path the script drives
 TRAIN_KERNELS = ("grid_encoder_bwd", "composite_fwd", "composite_bwd",
@@ -584,6 +611,327 @@ def phase_train(steps: int, warmup: int):
     if min(counts[k] for k in TRAIN_KERNELS) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: {counts}")
     return trainer, counts
+
+
+def small_shampoo():
+    """One Shampoo update on the card against the same update on the CPU,
+    at small width: a 4,152 x 2 table (32 blocks of 128 and a ragged one of
+    56, at 10x LR), a 64 x 32 weight, a bias of 64 and a scalar, with the
+    same seeded parameters and gradients. Each leaf's update is held to
+    1e-4 of its largest entry, or to 3x the largest change that CPU control
+    updates show when the gradients move by 2^-24 or 2^-23 (three sign
+    patterns each), where that is larger: a table block's first statistics
+    (rank 2 of 128) and a bias's (g g^T, rank 1) leave the f32 Newton
+    iteration ill-conditioned (ROADMAP queue 3)."""
+    from dreamfusion_torch.config import Config
+    from dreamfusion_torch.training.optimizers import build_optimizer
+
+    shapes = {"embeddings": (4152, 2), "w": (64, 32), "b": (64,), "s": ()}
+    gen = torch.Generator().manual_seed(5)
+    init = {k: torch.randn(v, generator=gen) * 0.1 for k, v in shapes.items()}
+    grads = {k: torch.randn(v, generator=gen) for k, v in shapes.items()}
+    cfg = Config(optimizer="shampoo", iters=100)
+
+    def update(dev, rel=0.0, seed=0):
+        m = torch.nn.ParameterDict({k: torch.nn.Parameter(v.clone().to(dev))
+                                    for k, v in init.items()})
+        opt, sched = build_optimizer(cfg, m)
+        sg = torch.Generator().manual_seed(seed)
+        for k, p in m.items():
+            sign = torch.randint(0, 2, shapes[k], generator=sg) * 2.0 - 1.0
+            p.grad = (grads[k] * (1 + rel * sign)).to(dev)
+        opt.step()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return {k: (p.detach() - init[k].to(dev)).cpu() for k, p in m.items()}
+
+    gpu, cpu = update(torch.device("cuda")), update(torch.device("cpu"))
+    controls = [update(torch.device("cpu"), rel, seed)
+                for rel in (2.0 ** -24, 2.0 ** -23) for seed in (1, 2, 3)]
+    bad = []
+    for k in shapes:
+        gap = rel_err(gpu[k], cpu[k])
+        ctl = max(rel_err(c[k], cpu[k]) for c in controls)
+        tol = max(1e-4, 3 * ctl)
+        log(f"[small] Shampoo update {k} {tuple(shapes[k])}: GPU-CPU "
+            f"{gap:.2e} of the largest entry, CPU control {ctl:.2e}, "
+            f"tolerance {tol:.2e}")
+        if not gap <= tol:
+            bad.append(k)
+    if bad:
+        raise AssertionError(f"Shampoo on the GPU disagrees with the CPU: "
+                             f"{bad}")
+
+
+def _options_argv(ws, steps, *extra):
+    return ["-O", "--text", "a hamburger", "--sd_weights", "random-full",
+            "--iters", str(steps), "--albedo_iters", str(steps // 2),
+            "--workspace", ws, "--ckpt", "scratch", "--seed", "0", *extra]
+
+
+def _stepwise(trainer, steps, each=None):
+    """Train one step at a time (train() does the refreshes and budgets)
+    with a sync after each: the per-step walls; each(trainer) after each
+    step."""
+    walls = []
+    for s in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train(max_steps=s + 1, log_interval=1,
+                      checkpoint_at_end=False)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if each is not None:
+            each(trainer)
+    return walls
+
+
+def _fallback_groups(trainer, o, d):
+    """Groups of the fallback frame that have an emit (each shades through
+    B-fwd once), from an independent march of the frame's padded rays."""
+    from dreamfusion_torch.ops import marching
+    from dreamfusion_torch.ops.composite import near_far_from_aabb
+
+    cfg, g = trainer.cfg, trainer.cfg.max_ray_batch
+    pad = (-o.shape[0]) % g
+    o = torch.cat([o, o.new_zeros(pad, 3)])
+    d = torch.cat([d, d.new_ones(pad, 3) / 3 ** 0.5])
+    aabb = torch.tensor([-cfg.bound] * 3 + [cfg.bound] * 3, device=o.device)
+    counts = []
+    for s in range(0, o.shape[0], g):
+        n, f = near_far_from_aabb(o[s:s + g], d[s:s + g], aabb, cfg.min_near)
+        counts.append(marching.march_rays(
+            trainer.grid_state.occ, o[s:s + g], d[s:s + g], n, f,
+            bound=cfg.bound, max_steps=cfg.max_steps, K=cfg.grid_K,
+            dt_gamma=cfg.dt_gamma).counts)
+    c = torch.sort(torch.cat(counts)).values.reshape(-1, g).amax(1)
+    return int((c > 0).sum()), o.shape[0] // g
+
+
+def phase_options(guidance=None, steps: int = 10, warmup: int = 2,
+                  shampoo_steps: int = 12):
+    """The train options at full width (the grid field's 16-level table, SD
+    random-full, 64x64): (a) -O --dt_gamma 1/128 --jitter_pose --ema_decay
+    0.95 for `steps` steps: kernel F exactly once a step, A, B and K5 as on
+    -O, finite losses, the EMA equal to its chain recomputed from the
+    parameters after each step (a few leaves, the same f32 arithmetic), then
+    an 800x800 orbit frame through the staged eval's march-everything
+    fallback: F once per 4,096-ray group (157), B-fwd once per group with an
+    emit, the frame against a direct full-K render_grid of the same pose
+    (f32 table 1e-4 / 1e-5, the default bf16 view 5e-2 / 2e-2); (b) -O
+    --optimizer shampoo for `shampoo_steps` steps (refreshes at counts 1
+    and 10): steps/s, the walls of the refresh steps, peak memory, finite
+    losses, parameters moved. Returns (counts of (a)'s steps, of its frame,
+    of (b), the trainer of (a))."""
+    import shutil
+
+    from dreamfusion_torch import cameras
+    from dreamfusion_torch.config import parse_config
+    from dreamfusion_torch.ops import cuda as kcuda
+    from dreamfusion_torch.parallel.jobs import direct_frame
+    from dreamfusion_torch.training import trainer as tr_mod
+    from dreamfusion_torch.training.optimizers import ema_update
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_opt_")
+    try:
+        argv = _options_argv(os.path.join(tmp, "ws"), steps, "--dt_gamma",
+                             "0.0078125", "--jitter_pose", "--ema_decay",
+                             "0.95")
+        cfg = parse_config(argv)
+        trainer = tr_mod.Trainer("options", cfg, guidance=guidance,
+                                 use_checkpoint="scratch")
+        log(f"[options] python -m dreamfusion_torch.main {' '.join(argv)}")
+        leaves = ("sigma_net.dense_0.weight", "sigma_net.dense_2.bias",
+                  "bg_net.dense_1.weight", "embeddings")
+        chain = {k: trainer.ema[k].clone() for k in leaves}
+        params = dict(trainer.model.named_parameters())
+
+        def follow(_):
+            ema_update(chain, {k: params[k] for k in leaves}, cfg.ema_decay)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kcuda.reset_counts()
+        walls = _stepwise(trainer, steps, follow)
+        counts = dict(kcuda.launch_counts)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = torch.stack(trainer.loss_history).float().cpu()
+        rate = (steps - warmup) / sum(walls[warmup:])
+        ema_gap = max(float((trainer.ema[k] - chain[k]).abs().max())
+                      for k in leaves)
+        recs = [json.loads(l) for l in open(trainer.log_path)]
+        log("[options] loss per step: " + " ".join(f"{float(x):.4g}"
+                                                   for x in losses))
+        log("[options] (K, M) per step: " + " ".join(
+            f"({r['grid_K']},{r['compact_M']})" for r in recs
+            if "grid_K" in r) + "; mean count per step: " + " ".join(
+            f"{r['mean_count']:.1f}" for r in recs if "mean_count" in r))
+        log(f"[options] steps/s after warm-up: {rate:.4f} (steps "
+            f"{warmup}..{steps}); step walls "
+            + " ".join(f"{w * 1e3:.1f}" for w in walls) + " ms")
+        log(f"[options] peak device memory: {peak:.2f} GiB")
+        log(f"[options] EMA against its chain recomputed from the parameters "
+            f"after each step ({', '.join(leaves)}): max abs diff {ema_gap:g}")
+        log(f"[options] kernels {json.dumps(counts)}")
+        if not bool(torch.isfinite(losses).all()) or len(losses) != steps:
+            raise AssertionError("non-finite loss in the options phase")
+        if counts["march_cone"] != steps or min(
+                counts[k] for k in TRAIN_KERNELS) <= 0:
+            raise AssertionError(f"options: kernel F must launch once a step "
+                                 f"and A, B and K5 must launch: {counts}")
+        if ema_gap != 0.0:
+            raise AssertionError("options: the EMA is not its chain")
+
+        H, W, size = cfg.H, cfg.W, cfg.test_size
+        b = cameras.sample_test_batch(1, size, cfg, H=H, W=W,
+                                      device=trainer.device)
+        o, d = b["rays_o"][0], b["rays_d"][0]
+        shaded, groups = _fallback_groups(trainer, o, d)
+        trainer._render_orbit_frame(0, size, H, W)      # warm
+        kcuda.reset_counts()
+        timings = {}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        frame = trainer._render_orbit_frame(1, size, H, W, timings=timings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        ecounts = dict(kcuda.launch_counts)
+        log(f"[options] {H}x{W} orbit frame 1 through the fallback: "
+            f"{wall:.3f} s ({1 / wall:.4f} frames/s); stages (ms) "
+            + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in timings.items())
+            + f"; {groups} groups, {shaded} with an emit; kernels "
+            f"{json.dumps(ecounts)}")
+        if (ecounts["march_cone"] != groups
+                or ecounts["composite_fwd"] != shaded
+                or ecounts["composite_compact"] or not shaded):
+            raise AssertionError(f"options frame: F once per group ({groups}) "
+                                 f"and B-fwd once per group with an emit "
+                                 f"({shaded}): {ecounts}")
+        ref = direct_frame(trainer, 1)
+        f32 = tr_mod.make_staged_grid_eval(
+            cfg.replace(eval_table_bf16=False), trainer.model, H, W)(
+                o, d, trainer.grid_state)
+        failed = []
+        for label, out, rtol, atol in (("f32 table", f32, 1e-4, 1e-5),
+                                       ("bf16 table (the default)", frame,
+                                        5e-2, 2e-2)):
+            err, bad = _frame_gap(out, ref, rtol, atol)
+            log(f"[options] fallback vs direct render_grid, {label}: "
+                f"max_abs_err {err:.3e}, pixels outside rtol {rtol:g} / atol "
+                f"{atol:g}: {bad} of {H * W}")
+            failed += [label] if bad else []
+        log(f"[options] pixels with weights_sum > 0.5: "
+            f"{int((ref['weights_sum'] > 0.5).sum())}")
+        _profiled(lambda: trainer._render_orbit_frame(1, size, H, W), 1,
+                  "fallback frame", ("eval/",))
+        if failed:
+            raise AssertionError(f"the fallback frame disagrees with "
+                                 f"render_grid: {failed}")
+
+        argv_s = _options_argv(os.path.join(tmp, "ws_s"), shampoo_steps,
+                               "--optimizer", "shampoo")
+        sh = tr_mod.Trainer("shampoo", parse_config(argv_s),
+                            guidance=trainer.guidance,
+                            use_checkpoint="scratch")
+        before = {k: v.clone() for k, v in sh.model.state_dict().items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kcuda.reset_counts()
+        s_walls = _stepwise(sh, shampoo_steps)
+        s_counts = dict(kcuda.launch_counts)
+        s_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        s_losses = torch.stack(sh.loss_history).float().cpu()
+        refresh = [i for i in range(shampoo_steps)
+                   if i + 1 <= 1 or (i + 1) % 10 == 0]
+        plain = [w for i, w in enumerate(s_walls)
+                 if i >= warmup and i not in refresh]
+        moved = _params_moved(sh.model, before)
+        n_blocks = sum(r[0].shape[0] for st in sh.opt.state.values()
+                       for r in st["stats"])
+        log(f"[options] python -m dreamfusion_torch.main {' '.join(argv_s)}")
+        log(f"[options] shampoo: loss per step " + " ".join(
+            f"{float(x):.4g}" for x in s_losses) + "; step walls "
+            + " ".join(f"{w * 1e3:.1f}" for w in s_walls) + " ms")
+        log(f"[options] shampoo: steps/s over the steps without a refresh "
+            f"after warm-up: {len(plain) / sum(plain):.4f}; steps/s over "
+            f"steps {warmup}..{shampoo_steps}: "
+            f"{(shampoo_steps - warmup) / sum(s_walls[warmup:]):.4f}; "
+            f"refresh steps (counts "
+            f"{', '.join(str(i + 1) for i in refresh)}): "
+            + ", ".join(f"{s_walls[i] * 1e3:.1f} ms" for i in refresh)
+            + f"; peak device memory {s_peak:.2f} GiB; statistic groups "
+            f"{n_blocks}; parameters moved by at most {moved:.3e}")
+        log(f"[options] shampoo kernels {json.dumps(s_counts)}")
+        if (not bool(torch.isfinite(s_losses).all())
+                or len(s_losses) != shampoo_steps or not moved > 0):
+            raise AssertionError("shampoo: non-finite loss or no movement")
+        if min(s_counts[k] for k in TRAIN_KERNELS) <= 0:
+            raise AssertionError(f"shampoo: a kernel of -O never launched: "
+                                 f"{s_counts}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts, ecounts, s_counts, trainer
+
+
+def phase_dp(steps: int = 3):
+    """Two data-parallel ranks on the one card, gloo (NCCL takes one rank a
+    card), through sharding.spawn and jobs.train_job: full-width -O with SD
+    random-full for `steps` steps. The first step's averaged gradients must
+    equal the mean of the ranks' own (1e-6 of each leaf's largest entry),
+    the parameters and the occupancy grid must be the same bits on both
+    ranks after every step, and the ray-sharded 800x800 orbit frame must
+    equal rank 0's direct render_grid of the same pose (1e-6). Returns rank
+    0's launch counts."""
+    import shutil
+
+    from dreamfusion_torch.parallel import jobs, sharding
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        argv = _options_argv(os.path.join(tmp, "ws"), steps)
+        devices = [torch.device("cuda", 0)] * 2
+        log(f"[dp] 2 ranks, backend gloo, devices {devices}: "
+            f"python -m dreamfusion_torch.main {' '.join(argv)}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sharding.spawn(jobs.train_job, (argv, steps, 1), devices,
+                             "gloo", timeout_s=300.0, join_timeout_s=900.0)
+        log(f"[dp] ranks done in {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0, r1 = res
+    grad_gap = max(rel_err(r0["averaged"][k],
+                           (r0["local"][k] + r1["local"][k]) / 2)
+                   for k in r0["averaged"])
+    apart = max(rel_err(r0["local"][k], r1["local"][k]) for k in r0["local"])
+    same = [a == b for a, b in zip(r0["digests"], r1["digests"])]
+    frame_gap = max(float((r0["frame"][k] - r0["direct"][k]).abs().max())
+                    for k in ("image", "depth", "weights_sum"))
+    walls = [max(a, b) for a, b in zip(r0["walls"], r1["walls"])]
+    log(f"[dp] losses rank 0 {r0['losses']}, rank 1 {r1['losses']}; budgets "
+        f"{r0['budgets']} / {r1['budgets']}")
+    log(f"[dp] first step: averaged gradients vs the mean of the ranks' own "
+        f"{grad_gap:.2e} of the largest entry (the ranks' own differ by "
+        f"{apart:.2e}); parameters and grid the same bits after each step: "
+        f"{same}")
+    log(f"[dp] step walls (slower rank) " + " ".join(
+        f"{w * 1e3:.1f}" for w in walls) + f" ms; steps/s over steps 1.."
+        f"{steps}: {(steps - 1) / sum(walls[1:]):.4f}; all-reduce of the "
+        f"gradients {r0['allreduce_s'] / r0['allreduces'] * 1e3:.2f} ms a "
+        f"step (rank 0, {r0['allreduces']} all-reduces, gloo through host "
+        f"memory), after a wait for the other rank of "
+        f"{r0['wait_s'] / r0['allreduces'] * 1e3:.2f} ms a step")
+    H, W = r0["frame"]["weights_sum"].shape
+    log(f"[dp] ray-sharded {H}x{W} frame: {r0['frame_s']:.3f} s (rank 0), "
+        f"max abs diff to rank 0's direct render_grid {frame_gap:.3e}")
+    log(f"[dp] kernels (rank 0) {json.dumps(r0['launches'])}")
+    if not all(same) or grad_gap > 1e-6 or frame_gap > 1e-6:
+        raise AssertionError("dp: the ranks disagree or the averaged "
+                             "gradients or the sharded frame are off")
+    if not apart > 0 or min(r0["launches"][k] for k in TRAIN_KERNELS) <= 0:
+        raise AssertionError(f"dp: the ranks drew alike or a kernel of -O "
+                             f"never launched: {r0['launches']}")
+    return r0["launches"]
 
 
 def _frame_gap(out, ref, rtol, atol):
@@ -1767,12 +2115,111 @@ def check_probe(table, idx):
     return res
 
 
-def phase_kernels(trainer, counts, captured=None, o2_trainer=None):
+def cone_inputs(label, gs, rays_o, rays_d, cfg, perturb: bool, gen):
+    """Kernel F's inputs for rays through grid state gs: (label, occ,
+    rays_o, rays_d, t0, fars, bound, max_steps, K, dt_gamma), t0 the
+    perturbed start where perturb, as march_rays computes it."""
+    from dreamfusion_torch.ops import marching
+    from dreamfusion_torch.ops.composite import near_far_from_aabb
+
+    b = cfg.bound
+    aabb = torch.tensor([-b] * 3 + [b] * 3, device=rays_o.device)
+    nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, cfg.min_near)
+    t0 = nears
+    if perturb:
+        g, lo, hi, _ = marching.cone_constants(cfg.dt_gamma, cfg.max_steps,
+                                               gs.occ.shape[0],
+                                               gs.occ.shape[1])
+        u = torch.rand(nears.shape, generator=gen, device=nears.device)
+        t0 = nears + torch.clamp(nears * g, lo, hi) * u
+    return (label, gs.occ, rays_o.contiguous(), rays_d.contiguous(),
+            t0.contiguous(), fars.contiguous(), b, cfg.max_steps, cfg.grid_K,
+            cfg.dt_gamma)
+
+
+def check_march_cone(label, occ, o, d, t0, fars, bound_, max_steps, K,
+                     dt_gamma, timed: bool):
+    """Kernel F against march_rays_cone_plain on the card: counts, ts, dts
+    and valid must be the same bits. Timed: CUDA events over 20 launches
+    (the plain version, a host loop of max_steps steps with a device sync
+    per sub-step, once), the byte bound of its rays in and [N, K] samples
+    plus counts out."""
+    from dreamfusion_torch.ops import marching
+
+    kw = dict(bound=bound_, max_steps=max_steps, K=K, dt_gamma=dt_gamma)
+    got = marching.march_rays_cone_cuda(occ, o, d, t0, fars, **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ref = marching.march_rays_cone_plain(occ, o, d, t0, fars, **kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t1
+    same = all(torch.equal(a, b) for a, b in zip(got, ref))
+    diff = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(got, ref))
+    N = o.shape[0]
+    c = ref.counts.float()
+    log(f"[kernels] F {label}: N={N:,} rays, max_steps {max_steps}, K {K}, "
+        f"dt_gamma {dt_gamma:g}, grid {tuple(occ.shape)} "
+        f"({float(occ.float().mean()):.4f} set); emits mean {float(c.mean()):.2f}"
+        f" max {int(c.max())}, rays over K {int((c > K).sum())}; bitwise "
+        f"equal to the plain version: {same} (max_abs_err {diff:g})")
+    if not same:
+        bad = (got.counts != ref.counts).nonzero().flatten()[:5].tolist()
+        raise AssertionError(f"kernel F differs from its plain version "
+                             f"({label}); rays with other counts: {bad}")
+    if not timed:
+        return None
+    ms = cuda_ms(lambda: marching.march_rays_cone_cuda(occ, o, d, t0, fars,
+                                                      **kw))
+    b_ms, b_by = bound(N * (24 + 4 + 4) + N * K * 9 + N * 8, 0)
+    log(f"[kernels] F {label}: {ms:.4f} ms by CUDA events over 20 launches "
+        f"(plain {plain_s * 1e3:.1f} ms, one run; bound {b_ms:.5f} ms "
+        f"{b_by}, {b_ms / ms:.4f} of it)")
+    return {"max_abs_err": diff, "ms": ms, "plain_ms": plain_s * 1e3,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def _cone_cases(opt_trainer, gen):
+    """Kernel F's inputs: the options phase's grid with a fresh jittered
+    train batch (4,096 rays, perturbed) and a 4,096-ray chunk of its 800x800
+    orbit frame 1 through the frame's middle; without that phase, the same
+    shapes through a seeded ball grid at 128^3."""
+    from dreamfusion_torch import cameras
+    from dreamfusion_torch.config import parse_config
+    from dreamfusion_torch.ops import marching
+
+    dev = torch.device("cuda")
+    if opt_trainer is not None:
+        cfg, gs = opt_trainer.cfg, opt_trainer.grid_state
+    else:
+        cfg = parse_config(["-O", "--text", "x", "--dt_gamma", "0.0078125",
+                            "--jitter_pose"])
+        H = cfg.grid_size
+        lin = (torch.arange(H, device=dev) + 0.5) / H * 2 - 1
+        X, Y, Z = torch.meshgrid(lin, lin, lin, indexing="ij")
+        occ = (torch.sqrt(X * X + Y * Y + Z * Z) < 0.5) | (
+            torch.rand(H, H, H, device=dev, generator=gen) < 0.02)
+        gs = marching.GridState(torch.zeros(1, H, H, H, device=dev),
+                                occ[None].contiguous(),
+                                torch.zeros((), device=dev))
+    b = cameras.sample_train_batch(cfg, generator=gen, device=dev)
+    o, d = b["rays_o"].reshape(-1, 3), b["rays_d"].reshape(-1, 3)
+    tb = cameras.sample_test_batch(1, cfg.test_size, cfg, device=dev)
+    s = cfg.H * cfg.W // 2 - cfg.max_ray_batch // 2
+    eo = tb["rays_o"][0][s:s + cfg.max_ray_batch]
+    ed = tb["rays_d"][0][s:s + cfg.max_ray_batch]
+    return [cone_inputs("train shape (perturbed)", gs, o, d, cfg, True, gen),
+            cone_inputs("eval chunk", gs, eo, ed, cfg, False, gen)]
+
+
+def phase_kernels(trainer, counts, captured=None, o2_trainer=None,
+                  opt_trainer=None):
     """Every kernel against its plain version; returns the entries of the
     {"kernels": [...]} line. counts maps each path that ran ("train",
     "eval", ...) to its launch counts: an entry gives them per path and
     their sum. With the o2 phase's trainer, kernel A also at the -O2 step's
-    sample positions (every one inside the box)."""
+    sample positions (every one inside the box); kernel F at the options
+    phase's grid (_cone_cases)."""
     from dreamfusion_torch.ops.grid_encoder import GridEncoderSpec
     from dreamfusion_torch.training.trainer import K_LADDER
 
@@ -1834,6 +2281,8 @@ def phase_kernels(trainer, counts, captured=None, o2_trainer=None):
     # 40, no gradient) and the VAE mid-block's (1 head of 512, gradient)
     unet_attn = check_attention(2, 4096, 8, 40, gen, dev, grad=False)
     vae_attn = check_attention(1, 4096, 1, 512, gen, dev, grad=True)
+    cone = [check_march_cone(*case, timed=True)
+            for case in _cone_cases(opt_trainer, gen)]
     results = [("grid_encoder_bwd", a_dense), ("grid_encoder_bwd", a_comp),
                ("grid_encoder_bwd", a_k1b),
                *([("grid_encoder_bwd", a_o2)] if a_o2 is not None else []),
@@ -1841,7 +2290,8 @@ def phase_kernels(trainer, counts, captured=None, o2_trainer=None):
                ("composite_fwd", bf),
                ("composite_bwd", bb), ("attention_fwd", unet_attn["fwd"]),
                ("attention_fwd", vae_attn["fwd"]),
-               ("attention_bwd", vae_attn["bwd"])]
+               ("attention_bwd", vae_attn["bwd"]),
+               *(("march_cone", c) for c in cone)]
     # the eval's kernels at the inputs its frame gave them: C at every
     # compact budget the groups used (timed at the most used), D at the
     # frame's classify probes
@@ -1974,7 +2424,8 @@ def phase_profile(trainers, steps: int = 3):
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phases",
-                   default="build,small,train,eval,hashgrid,edit,o2,kernels")
+                   default="build,small,train,eval,hashgrid,edit,o2,options,"
+                           "dp,kernels")
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--warmup", type=int, default=4)
     args = p.parse_args(argv)
@@ -1995,12 +2446,13 @@ def main(argv=None) -> int:
         f"{torch.backends.cuda.matmul.allow_tf32}, cudnn tf32 "
         f"{torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
-    trainer, edit_trainer, o2_trainer = None, None, None
+    trainer, edit_trainer, o2_trainer, opt_trainer = None, None, None, None
     counts, captured = {}, None
     if "build" in phases:
         phase_build()
     if "small" in phases:
         phase_small()
+        small_shampoo()
     if "train" in phases:
         trainer, counts["train"] = phase_train(args.steps, args.warmup)
     if "eval" in phases:
@@ -2017,7 +2469,14 @@ def main(argv=None) -> int:
         (counts["o2"], counts["o2_eval"], counts["config1"],
          o2_trainer) = phase_o2(trainer.guidance if trainer is not None
                                 else None)
-    entries = (phase_kernels(trainer, counts, captured, o2_trainer)
+    if "options" in phases:
+        (counts["options"], counts["options_eval"], counts["shampoo"],
+         opt_trainer) = phase_options(trainer.guidance if trainer is not None
+                                      else None)
+    if "dp" in phases:
+        counts["dp"] = phase_dp()
+    entries = (phase_kernels(trainer, counts, captured, o2_trainer,
+                             opt_trainer)
                if "kernels" in phases else [])
     if "profile" in phases:
         phase_profile([(label, t) for label, t in (("grid", trainer),

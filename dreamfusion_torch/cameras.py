@@ -21,6 +21,9 @@ from dreamfusion_torch.device import resolve_device
 
 # View-direction buckets (reference: nerf/provider.py:52-69).
 DIR_TEXTS = ("front", "side", "back", "side", "overhead", "bottom")
+# the injectable draws of rand_poses
+POSE_DRAWS = ("radius", "u_sphere", "u_orbit", "u_select", "center_u",
+              "target_n", "up_n")
 
 
 def safe_normalize(x: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
@@ -48,12 +51,17 @@ def get_view_direction(thetas: torch.Tensor, phis: torch.Tensor,
     return res
 
 
-def _lookat_poses(centers: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def _lookat_poses(centers: torch.Tensor, targets: torch.Tensor,
+                  up_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """cam2world poses looking from centers to targets (y-down up vector);
+    up_noise [size, 3] (pose jitter) is added to the up vector before it
+    is normalised."""
     size = centers.shape[0]
     forward = safe_normalize(targets - centers)
     up = torch.tensor([0.0, -1.0, 0.0], device=centers.device).expand(size, 3)
     right = safe_normalize(torch.cross(forward, up, dim=-1))
-    up = safe_normalize(torch.cross(right, forward, dim=-1))
+    up = torch.cross(right, forward, dim=-1)
+    up = safe_normalize(up if up_noise is None else up + up_noise)
     poses = torch.eye(4, device=centers.device).repeat(size, 1, 1)
     poses[:, :3, :3] = torch.stack((right, up, forward), dim=-1)
     poses[:, :3, 3] = centers
@@ -63,19 +71,27 @@ def _lookat_poses(centers: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 def rand_poses(size: int, *, radius_range=(1.0, 1.5),
                theta_range=(0.0, 100.0), phi_range=(0.0, 360.0),
                angle_overhead: float = 30.0, angle_front: float = 60.0,
-               uniform_sphere_rate: float = 0.5,
+               uniform_sphere_rate: float = 0.5, jitter: bool = False,
                generator: Optional[torch.Generator] = None,
                device: Optional[torch.device] = None,
                radius: Optional[torch.Tensor] = None,
                u_sphere: Optional[torch.Tensor] = None,
                u_orbit: Optional[torch.Tensor] = None,
                u_select: Optional[torch.Tensor] = None,
+               center_u: Optional[torch.Tensor] = None,
+               target_n: Optional[torch.Tensor] = None,
+               up_n: Optional[torch.Tensor] = None,
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Random orbit-camera poses (reference: nerf/provider.py:72-141).
 
     Draws (all optional): radius [size] in radius_range, u_sphere [size,3]
     and u_orbit [size,2] uniform in [0,1), u_select [size] uniform in
-    [0,1) (< uniform_sphere_rate picks the sphere candidate).
+    [0,1) (< uniform_sphere_rate picks the sphere candidate). With jitter
+    (pose jitter, nerf/provider.py:116-128) also center_u [size,3] uniform
+    in [0,1) (centers move by U[-0.1, 0.1)), target_n and up_n [size,3]
+    standard normal (targets move by N(0, 0.2^2), the up vector by
+    N(0, 0.02^2)); they are drawn after the others and only with jitter,
+    so the draw stream without it is unchanged.
     Returns (poses [size,4,4], dirs [size] int64, thetas, phis)."""
     device = resolve_device(device)
     theta_range = tuple(map(math.radians, theta_range))
@@ -110,7 +126,20 @@ def rand_poses(size: int, *, radius_range=(1.0, 1.5),
     thetas = torch.where(use_sphere, thetas_sph, thetas_orb)
     phis = torch.where(use_sphere, phis_sph, phis_orb)
     centers = torch.where(use_sphere[:, None], centers_sph, centers_orb)
-    poses = _lookat_poses(centers, torch.zeros_like(centers))
+    targets = torch.zeros_like(centers)
+    up_noise = None
+    if jitter:
+        if center_u is None:
+            center_u = _uniform((size, 3), generator, device)
+        if target_n is None:
+            target_n = torch.randn((size, 3), generator=generator,
+                                   device=device)
+        if up_n is None:
+            up_n = torch.randn((size, 3), generator=generator, device=device)
+        centers = centers + (center_u * 0.2 - 0.1)
+        targets = targets + target_n * 0.2
+        up_noise = up_n * 0.02
+    poses = _lookat_poses(centers, targets, up_noise)
     dirs = get_view_direction(thetas, phis, overhead, front)
     return poses, dirs, thetas, phis
 
@@ -165,17 +194,17 @@ def sample_train_batch(cfg, *, generator: Optional[torch.Generator] = None,
     """One training batch of cameras + rays (reference: NeRFDataset(train),
     nerf/provider.py:202-236).
 
-    draws (optional): radius, u_sphere, u_orbit, u_select (see rand_poses)
-    and fov [] in degrees. Returns rays_o/rays_d [B, h*w, 3] and dir [B]."""
+    draws (optional): radius, u_sphere, u_orbit, u_select, and with
+    cfg.jitter_pose center_u, target_n, up_n (see rand_poses), and fov []
+    in degrees. Returns rays_o/rays_d [B, h*w, 3] and dir [B]."""
     B = B or cfg.batch_size
     device = resolve_device(device)
     draws = draws or {}
     poses, dirs, _, _ = rand_poses(
         B, radius_range=cfg.radius_range, angle_overhead=cfg.angle_overhead,
         angle_front=cfg.angle_front, uniform_sphere_rate=cfg.uniform_sphere_rate,
-        generator=generator, device=device,
-        radius=draws.get("radius"), u_sphere=draws.get("u_sphere"),
-        u_orbit=draws.get("u_orbit"), u_select=draws.get("u_select"))
+        jitter=cfg.jitter_pose, generator=generator, device=device,
+        **{k: draws.get(k) for k in POSE_DRAWS})
     fov = draws.get("fov")
     if fov is None:
         fov = _uniform((), generator, device, *cfg.fovy_range)

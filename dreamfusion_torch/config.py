@@ -8,6 +8,12 @@ view-dependent text (reference main.py:75-79); ``-O2`` = bf16 compute +
 view-dependent text, stratified renderer (main.py:81-84). On the GPU
 "fp16" means bf16 compute with f32 parameters, as in the JAX package.
 ``finalize`` applies the backbone's defaults (main.py:86-89).
+
+The train options ``jitter_pose``, ``dt_gamma`` (cone stepping),
+``ema_decay`` and ``optimizer`` ("adam" | "shampoo") and the data-parallel
+``n_devices`` (0 = every visible card) are the JAX package's. Its
+``mesh_shape`` and ``mesh_axes`` are read nowhere there beyond its
+config.py, so the port has neither.
 """
 
 from __future__ import annotations
@@ -68,9 +74,11 @@ class Config:
     h: int = 64
     W: int = 800                        # eval/test render width
     H: int = 800                        # eval/test render height
+    jitter_pose: bool = False
 
     # -- scene ---------------------------------------------------------------
     bound: float = 1.0
+    dt_gamma: float = 0.0               # > 0: cone stepping (kernel F)
     min_near: float = 0.1
     radius_range: Tuple[float, float] = (1.0, 1.5)
     fovy_range: Tuple[float, float] = (40.0, 70.0)
@@ -91,15 +99,23 @@ class Config:
     clip_weights: Optional[str] = None  # random-tiny (the one buildable)
 
     # -- optimizer --------------------------------------------------------------
+    optimizer: str = "adam"             # 'adam' | 'shampoo'
     adam_b1: float = 0.9
     adam_b2: float = 0.99
     adam_eps: float = 1e-15
+    ema_decay: Optional[float] = None
 
     # -- bookkeeping ------------------------------------------------------------
     dataset_size: int = 100             # steps per "epoch"
     test_size: int = 100                # frames in the 360-degree test orbit
     val_size: int = 5                   # frames of each evaluation
     max_keep_ckpt: int = 2
+
+    # -- parallelism --------------------------------------------------------------
+    # data-parallel ranks, one process and one card each (1 = one process,
+    # 0 = every visible card); the camera batch is per rank, as with DDP
+    # (nerf/utils.py:200-202)
+    n_devices: int = 1
 
     @property
     def cascade(self) -> int:
@@ -167,6 +183,11 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--no_eval_table_bf16", dest="eval_table_bf16",
                    action="store_false", default=d.eval_table_bf16)
     p.add_argument("--dataset_size", type=int, default=d.dataset_size)
+    p.add_argument("--ema_decay", type=float, default=None)
+    p.add_argument("--optimizer", type=str, default=d.optimizer)
+    p.add_argument("--n_devices", type=int, default=d.n_devices,
+                   help="data-parallel ranks, one card each (0 = all "
+                        "visible); with --device cpu, gloo ranks on the CPU")
     p.add_argument("--max_keep_ckpt", type=int, default=d.max_keep_ckpt)
     p.add_argument("--test_size", type=int, default=d.test_size)
     p.add_argument("--val_size", type=int, default=d.val_size)
@@ -180,9 +201,11 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=d.batch_size)
     p.add_argument("--w", type=int, default=d.w)
     p.add_argument("--h", type=int, default=d.h)
+    p.add_argument("--jitter_pose", action="store_true")
     p.add_argument("--W", type=int, default=d.W)
     p.add_argument("--H", type=int, default=d.H)
     p.add_argument("--bound", type=float, default=d.bound)
+    p.add_argument("--dt_gamma", type=float, default=d.dt_gamma)
     p.add_argument("--min_near", type=float, default=d.min_near)
     p.add_argument("--radius_range", type=float, nargs="*",
                    default=list(d.radius_range))

@@ -8,6 +8,10 @@ its 360-degree orbit.
       --clip_weights random-tiny --text "a hamburger"
   python -m dreamfusion_torch.main -O --backbone dvgo \
       --pretrained_dvgo scene.dvgo --bg_radius 0 --text "a golden ficus"
+  python -m dreamfusion_torch.main -O --text "a hamburger" \
+      --dt_gamma 0.0078125 --jitter_pose --ema_decay 0.95
+  python -m dreamfusion_torch.main -O --text "a hamburger" --optimizer shampoo
+  python -m dreamfusion_torch.main -O --text "a hamburger" --n_devices 2
 
 ``-O`` trains with the occupancy-grid renderer, ``-O2`` with the
 stratified renderer (64 + 64 samples a ray), both with SDS guidance on
@@ -21,33 +25,75 @@ stratified renderer in chunks) into ``<workspace>/results``
 without training. ``--backbone dvgo`` edits one pretrained DVGO scene: its
 density and feature grids stay frozen and only its colour MLP (and the
 background net, if any) trains; give ``--pretrained_dvgo`` with ``--test``
-too, since the file sizes the model. Mesh export and the GUI are not
-ported yet (ROADMAP.md).
+too, since the file sizes the model.
+
+The train options: ``--jitter_pose`` jitters the camera poses,
+``--dt_gamma g`` (> 0) marches with cone stepping (kernel F) and renders
+the eval through the march-everything fallback, ``--ema_decay d`` keeps an
+EMA of the parameters (the "best" checkpoint holds it), ``--optimizer
+shampoo`` trains with block Shampoo in place of Adam. ``--n_devices N``
+trains data-parallel over N ranks, one process and one card each (0 =
+every visible card), with NCCL; with ``--device cpu`` over N gloo
+processes on the CPU. Mesh export and the GUI are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from dreamfusion_torch.config import parse_config
+from typing import List, Optional
+
+import torch
+
+from dreamfusion_torch.config import Config, parse_config
 from dreamfusion_torch.guidance import none_guidance
+from dreamfusion_torch.parallel import sharding
 from dreamfusion_torch.training.trainer import Trainer
 
 
-def main(argv=None) -> Trainer:
-    cfg = parse_config(argv)
-    print(cfg)
+def run(cfg: Config,
+        parallel: Optional[sharding.DataParallel] = None) -> Trainer:
+    """Train (unless cfg.test), then render the orbit; one rank's share of
+    it under data parallelism (rank 0 prints)."""
+    say = print if parallel is None or parallel.rank == 0 else (
+        lambda *a: None)
     if cfg.test:
-        trainer = Trainer("df", cfg, guidance=none_guidance(cfg.device),
-                          workspace=cfg.workspace, use_checkpoint=cfg.ckpt)
+        trainer = Trainer("df", cfg, guidance=none_guidance(
+            parallel.device if parallel else cfg.device),
+            workspace=cfg.workspace, use_checkpoint=cfg.ckpt,
+            parallel=parallel)
     else:
         trainer = Trainer("df", cfg, workspace=cfg.workspace,
-                          use_checkpoint=cfg.ckpt)
+                          use_checkpoint=cfg.ckpt, parallel=parallel)
         trainer.train(max_steps=cfg.iters)
-        print(f"trained to step {trainer.step}; checkpoint in "
-              f"{trainer.ckpt_dir}")
+        say(f"trained to step {trainer.step}; checkpoint in "
+            f"{trainer.ckpt_dir}")
     trainer.test()
-    print(f"rendered {cfg.test_size} orbit frames at {cfg.H}x{cfg.W} into "
-          f"{trainer.workspace}/results")
+    say(f"rendered {cfg.test_size} orbit frames at {cfg.H}x{cfg.W} into "
+        f"{trainer.workspace}/results")
     return trainer
+
+
+def _rank(dp: sharding.DataParallel, argv: Optional[List[str]]) -> int:
+    run(parse_config(argv), dp)
+    return dp.rank
+
+
+def main(argv=None) -> Optional[Trainer]:
+    """The CLI. One rank: returns the Trainer. Several (--n_devices): the
+    ranks run in processes of their own, and main returns None."""
+    cfg = parse_config(argv)
+    print(cfg)
+    device = torch.device(cfg.device or "cuda")
+    world = sharding.world_size(cfg.n_devices, device)
+    if world == 1:
+        return run(cfg)
+    backend = "gloo" if device.type == "cpu" else "nccl"
+    devices = ([device] * world if device.type == "cpu"
+               else [torch.device("cuda", r) for r in range(world)])
+    print(f"data parallel: {world} ranks, {backend}, on "
+          f"{', '.join(map(str, devices))}")
+    sharding.spawn(_rank, (argv,), devices, backend)
+    return None
 
 
 if __name__ == "__main__":

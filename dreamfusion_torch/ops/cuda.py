@@ -38,6 +38,7 @@ SOURCES = {
     "fused_composite": "fused_composite.cu",
     "flash_attention": "flash_attention.cu",
     "probe_select": "probe_select.cu",
+    "march_cone": "march_cone.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -52,6 +53,7 @@ launch_counts: Dict[str, int] = {
     "attention_fwd": 0,
     "attention_bwd": 0,
     "probe_select_small": 0,
+    "march_cone": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -6,7 +6,10 @@ nerf/renderer.py:446-613).
   threshold, with the JAX package's partial (quarter-lattice) refreshes.
 - ``march_rays`` (dt_gamma = 0): every lattice point t0 + k*dt is tested
   against the occupancy grid at once, then the emitted samples are
-  compacted to the first K per ray (``_compact``).
+  compacted to the first K per ray (``_compact``). With dt_gamma > 0 (cone
+  stepping: dt grows with t) it takes ``march_rays_cone``: kernel F
+  (csrc/march_cone.cu, a thread per ray) on a CUDA tensor,
+  ``march_rays_cone_plain`` (max_steps masked steps) on a CPU tensor.
 - ``make_compact_map`` / ``compact_expand``: the field is queried at a
   global budget of M samples; when the marched total exceeds M every ray
   keeps floor(count * M / total) samples (the JAX truncation semantics).
@@ -22,15 +25,17 @@ injected, as everywhere in the port.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from dreamfusion_torch.cameras import safe_normalize
 from dreamfusion_torch.device import resolve_device
-from dreamfusion_torch.ops import fused_composite, probe
+from dreamfusion_torch.ops import cuda, fused_composite, probe
 from dreamfusion_torch.ops.composite import CompositeOut, near_far_from_aabb
 from dreamfusion_torch.ops.fused_composite import composite_fused
 
@@ -302,13 +307,26 @@ def _compact(ts, dts, emits, K: int,
 
 @torch.no_grad()
 def march_rays(occ, rays_o, rays_d, nears, fars, *, bound: float,
-               max_steps: int, K: int, perturb: bool = False,
+               max_steps: int, K: int, dt_gamma: float = 0.0,
+               perturb: bool = False,
                generator: Optional[torch.Generator] = None,
                perturb_u: Optional[torch.Tensor] = None) -> MarchOut:
-    """Fixed-K occupancy-grid marching on the uniform lattice (dt_gamma = 0,
-    marching.py:556-577; cone stepping is not ported). perturb_u
-    (optional): [N] uniform in [0, 1)."""
+    """Fixed-K occupancy-grid marching (marching.py:231-307). dt_gamma = 0:
+    the uniform lattice (marching.py:556-577); dt_gamma > 0: cone stepping
+    (march_rays_cone). perturb_u (optional): [N] uniform in [0, 1); the
+    start moves by dt * u, dt the start's step size."""
     N = rays_o.shape[0]
+    if dt_gamma != 0.0:
+        g, dt_min, dt_max, _ = cone_constants(dt_gamma, max_steps,
+                                              occ.shape[0], occ.shape[1])
+        t0 = nears
+        if perturb:
+            if perturb_u is None:
+                perturb_u = torch.rand(N, generator=generator,
+                                       device=rays_o.device)
+            t0 = t0 + torch.clamp(t0 * g, dt_min, dt_max) * perturb_u
+        return march_rays_cone(occ, rays_o, rays_d, t0, fars, bound=bound,
+                               max_steps=max_steps, K=K, dt_gamma=dt_gamma)
     dt = 2.0 * SQRT3 / max_steps
     t0 = nears
     if perturb:
@@ -320,6 +338,130 @@ def march_rays(occ, rays_o, rays_d, nears, fars, *, bound: float,
                                          device=rays_o.device)[None, :]
     emits = _probe_occupancy(occ, rays_o, rays_d, ts, bound) & (ts < fars[:, None])
     return _compact(ts, torch.full_like(ts, dt), emits, K)[0]
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+def cone_constants(dt_gamma: float, max_steps: int, C: int, H: int):
+    """(dt_gamma, dt_min, dt_max, 2 / H) rounded to f32 once, as the JAX
+    package's f32 arithmetic takes them (marching.py:262-263, 283): the
+    plain version and kernel F both use these values."""
+    return (_f32(dt_gamma), _f32(2.0 * SQRT3 / max_steps),
+            _f32(2.0 * SQRT3 * (2 ** (C - 1)) / H), _f32(2.0 / H))
+
+
+def _mip_level(x: torch.Tensor, dt: torch.Tensor, H: int,
+               C: int) -> torch.Tensor:
+    """max(mip from the position, mip from dt), each floor(log2(max(m,
+    1e-30))) + 1 clamped to [0, C-1] (marching.py:210-218) -> int32 [N]."""
+    def expo(m):
+        return torch.clamp((torch.floor(torch.log2(torch.clamp(m, min=1e-30)))
+                            + 1.0).to(torch.int32), 0, C - 1)
+    return torch.maximum(expo(x.abs().amax(-1)), expo(dt * H * 0.5))
+
+
+@torch.no_grad()
+def march_rays_cone_plain(occ, rays_o, rays_d, t0, fars, *, bound: float,
+                          max_steps: int, K: int,
+                          dt_gamma: float) -> MarchOut:
+    """Cone-stepping march (marching.py:248-307), the plain version of
+    kernel F: exactly max_steps steps over all rays. A step probes the
+    occupancy at t (the cascade level from the position and dt); an
+    occupied cell emits (t, dt) and advances t by dt, an empty one advances
+    with dt re-clamped at every sub-step up to the next voxel face (the
+    CUDA do/while, raymarching.cu:396-399), masked per ray, until no ray is
+    short of its target. t0 [N] is the (perturbed) start. Returns the first
+    K emits of each ray in order and counts = every emit (_compact)."""
+    C, H = occ.shape[0], occ.shape[1]
+    g, dt_min, dt_max, cell = cone_constants(dt_gamma, max_steps, C, H)
+    occ_flat = occ.reshape(-1)
+    tiny = torch.where(rays_d >= 0, torch.full_like(rays_d, 1e-15),
+                       torch.full_like(rays_d, -1e-15))
+    inv_d = torch.reciprocal(torch.where(rays_d.abs() < 1e-15, tiny, rays_d))
+    half_sign = 0.5 * torch.sign(rays_d)
+
+    def advance(tv):
+        return tv + torch.clamp(tv * g, dt_min, dt_max)
+
+    t = t0
+    ts, dts, emits = [], [], []
+    for _ in range(max_steps):
+        x = torch.clamp(rays_o + t[:, None] * rays_d, -bound, bound)
+        dt = torch.clamp(t * g, dt_min, dt_max)
+        level = (_mip_level(x, dt, H, C) if C > 1
+                 else torch.zeros_like(t, dtype=torch.int32))
+        mip = torch.clamp(torch.exp2(level.float()), max=bound)
+        n = torch.clamp(0.5 * (x / mip[:, None] + 1.0) * H, 0.0,
+                        H - 1.0).to(torch.int32)
+        flat = (n[:, 0] * H + n[:, 1]) * H + n[:, 2] + level * H ** 3
+        alive = t < fars
+        emit = occ_flat[flat] & alive
+        nb = (n.float() + 0.5 + half_sign) * cell - 1.0
+        t_axis = (nb * mip[:, None] - x) * inv_d
+        target = torch.where(emit, t, t + torch.clamp(t_axis.amin(-1),
+                                                      min=0.0))
+        tv = torch.where(alive, advance(t), t)
+        short = (tv < target) & alive
+        while bool(short.any()):
+            tv = torch.where(short, advance(tv), tv)
+            short = (tv < target) & alive
+        ts.append(t)
+        dts.append(dt)
+        emits.append(emit)
+        t = tv
+    return _compact(torch.stack(ts, 1), torch.stack(dts, 1),
+                    torch.stack(emits, 1), K)[0]
+
+
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _cone_lib():
+    lib = cuda.library("march_cone")
+    if not getattr(lib, "_typed", False):
+        lib.march_cone.argtypes = ([_VP] * 9 + [_I] * 5 + [_F] * 5 + [_VP])
+        lib.march_cone.restype = _I
+        lib._typed = True
+    return lib
+
+
+@torch.no_grad()
+def march_rays_cone_cuda(occ, rays_o, rays_d, t0, fars, *, bound: float,
+                         max_steps: int, K: int,
+                         dt_gamma: float) -> MarchOut:
+    """Kernel F: march_rays_cone_plain's contract, one thread per ray."""
+    N = rays_o.shape[0]
+    C, H = occ.shape[0], occ.shape[1]
+    dev = rays_o.device
+    g, dt_min, dt_max, cell = cone_constants(dt_gamma, max_steps, C, H)
+    cuda.require(rays_o, "rays_o", torch.float32, (N, 3))
+    cuda.require(rays_d, "rays_d", torch.float32, (N, 3), dev)
+    cuda.require(t0, "t0", torch.float32, (N,), dev)
+    cuda.require(fars, "fars", torch.float32, (N,), dev)
+    cuda.require(occ, "occ", torch.bool, (C, H, H, H), dev)
+    ts = torch.empty(N, K, dtype=torch.float32, device=dev)
+    dts = torch.empty(N, K, dtype=torch.float32, device=dev)
+    valid = torch.empty(N, K, dtype=torch.bool, device=dev)
+    counts = torch.empty(N, dtype=torch.int64, device=dev)
+    err = _cone_lib().march_cone(
+        rays_o.data_ptr(), rays_d.data_ptr(), t0.data_ptr(), fars.data_ptr(),
+        occ.data_ptr(), ts.data_ptr(), dts.data_ptr(), valid.data_ptr(),
+        counts.data_ptr(), N, K, max_steps, C, H, float(bound), g, dt_min,
+        dt_max, cell, cuda.stream_ptr(dev))
+    cuda.check_launch(err, "march_cone")
+    cuda.launch_counts["march_cone"] += 1
+    return MarchOut(ts=ts, dts=dts, valid=valid, counts=counts)
+
+
+def march_rays_cone(occ, rays_o, rays_d, t0, fars, **kw) -> MarchOut:
+    """Kernel F on a CUDA tensor, the plain version on a CPU tensor."""
+    if rays_o.is_cuda:
+        return march_rays_cone_cuda(occ, rays_o.contiguous(),
+                                    rays_d.contiguous(), t0.contiguous(),
+                                    fars.contiguous(), **kw)
+    return march_rays_cone_plain(occ, rays_o, rays_d, t0, fars, **kw)
 
 
 class CompactMap(NamedTuple):
@@ -453,7 +595,8 @@ def composite_compact(sigma_c, color_c, t_c, dt_c, cmap: CompactMap, N: int,
 
 def render_grid(fns, grid_state: GridState, rays_o, rays_d, *,
                 bound: float = 1.0, min_near: float = 0.1,
-                max_steps: int = 512, K: int = 128, bg_radius: float = 1.4, light_d=None,
+                max_steps: int = 512, K: int = 128, dt_gamma: float = 0.0,
+                bg_radius: float = 1.4, light_d=None,
                 ambient_ratio: float = 1.0, shading_code: int = 0,
                 bg_color=None, perturb: bool = False, T_thresh: float = 1e-4,
                 compute_normal_losses: bool = False,
@@ -476,7 +619,8 @@ def render_grid(fns, grid_state: GridState, rays_o, rays_d, *,
         light_d = safe_normalize(rays_o[0] + light_n)
     march = march_rays(grid_state.occ, rays_o.detach(), rays_d.detach(),
                        nears, fars, bound=bound, max_steps=max_steps, K=K,
-                       perturb=perturb, generator=generator, perturb_u=perturb_u)
+                       dt_gamma=dt_gamma, perturb=perturb, generator=generator,
+                       perturb_u=perturb_u)
     return shade_march(fns, march, rays_o, rays_d, nears, fars, K=K,
                        bound=bound, light_d=light_d,
                        ambient_ratio=ambient_ratio, shading_code=shading_code,

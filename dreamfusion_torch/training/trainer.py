@@ -58,15 +58,16 @@ from dreamfusion_torch.models.networks import (SHADING_ALBEDO,
                                                _BaseNeRF, build_model,
                                                make_field_fns)
 from dreamfusion_torch.ops.composite import near_far_from_aabb
-from dreamfusion_torch.ops.marching import (SQRT3, GridState,
+from dreamfusion_torch.ops.marching import (SQRT3, GridState, MarchOut,
                                             coarse_hit_window,
-                                            init_grid_state,
+                                            init_grid_state, march_rays,
                                             march_rays_window,
                                             max_pooled_stride, pool_occ,
                                             refresh_partial, render_grid,
                                             shade_march, update_grid)
+from dreamfusion_torch.parallel import sharding
 from dreamfusion_torch.renderer import render_rays_chunked, render_stratified
-from dreamfusion_torch.training.optimizers import build_optimizer
+from dreamfusion_torch.training.optimizers import build_optimizer, ema_update
 
 K_LADDER = (16, 32, 48, 64, 96, 128, 192, 256)
 SDS_DRAWS = ("vae_eps", "t", "noise")
@@ -102,8 +103,9 @@ def make_grads_fn(cfg: Config, model: _BaseNeRF, guidance: Guidance,
     (grid_K, compact_M and grid_state apply to it), else the stratified
     renderer (trainer.py:112-120; grid_state unused).
 
-    draws (all optional): radius, u_sphere, u_orbit, u_select, fov (camera),
-    shade_u (float), bg [B*h*w, 3], light_n [3], perturb_u ([B*h*w] on the
+    draws (all optional): radius, u_sphere, u_orbit, u_select, fov, and
+    with cfg.jitter_pose center_u, target_n, up_n (camera), shade_u
+    (float), bg [B*h*w, 3], light_n [3], perturb_u ([B*h*w] on the
     grid renderer, [B*h*w, num_steps] on the stratified one), pdf_u
     [B*h*w, upsample_steps] (stratified), smooth_n, and the SDS draws
     vae_eps, t, noise."""
@@ -145,6 +147,7 @@ def make_grads_fn(cfg: Config, model: _BaseNeRF, guidance: Guidance,
             if cfg.grid_ray:
                 out = render_grid(fns, grid_state, rays_o, rays_d,
                                   max_steps=cfg.max_steps, K=grid_K,
+                                  dt_gamma=cfg.dt_gamma,
                                   compact_M=compact_M, **kw)
             else:
                 out = render_stratified(
@@ -246,6 +249,15 @@ def make_staged_grid_eval(cfg: Config, model: _BaseNeRF, H: int,
        compositor), several cascades dense at the live bucket (kernel B);
        paste by ray index.
 
+    With cfg.dt_gamma > 0 the coarse pass does not apply (cone stepping
+    leaves the lattice), and the frame takes the march-everything fallback
+    (trainer.py:644-651, 807-858): every group marched at K = grid_K
+    (kernel F), the frame's rays sorted by emit count, ascending, each
+    group's largest count taken to the host once, groups without an emit
+    left to the background, the others shaded dense at the bucket of their
+    largest count (kernel B-fwd) and pasted by ray index; no live cut and
+    no kernel C, as in the JAX package.
+
     Groups hold cfg.max_ray_batch rays (4,096, the JAX default group).
     Returns render_frame(rays_o, rays_d, grid_state,
     shading_code=albedo, ambient_ratio=1.0, bg_color=None, light_d=None,
@@ -260,6 +272,7 @@ def make_staged_grid_eval(cfg: Config, model: _BaseNeRF, H: int,
                                     pool_factor), 16)
               if pool_factor > 1 else 1)
     dt_lattice = 2.0 * SQRT3 / cfg.max_steps
+    cone = cfg.dt_gamma > 0
     S_ladder = sorted({max(cfg.max_steps // 8, 1), cfg.max_steps // 4,
                        (3 * cfg.max_steps) // 8, cfg.max_steps // 2,
                        (5 * cfg.max_steps) // 8, (3 * cfg.max_steps) // 4,
@@ -279,6 +292,25 @@ def make_staged_grid_eval(cfg: Config, model: _BaseNeRF, H: int,
         gmax = counts.float()[perm].reshape(-1, group).amax(1)
         gspan = span[perm].reshape(-1, group).amax(1)
         return perm, t_lo, torch.stack([gmax, gspan], 1).cpu()
+
+    def march_all(occ, o, d, aabb):
+        """The fallback's march: each group of rays at K = grid_K, the
+        sort by emit count and each group's largest count on the host.
+        Returns (MarchOut, nears, fars, perm, gmax [groups] host)."""
+        parts = []
+        for s in range(0, o.shape[0], group):
+            o_g, d_g = o[s:s + group], d[s:s + group]
+            nears, fars = near_far_from_aabb(o_g, d_g, aabb, cfg.min_near)
+            parts.append((march_rays(occ, o_g, d_g, nears, fars,
+                                     bound=cfg.bound,
+                                     max_steps=cfg.max_steps, K=cfg.grid_K,
+                                     dt_gamma=cfg.dt_gamma), nears, fars))
+        m = MarchOut(*(torch.cat([p[0][i] for p in parts]) for i in range(4)))
+        nears = torch.cat([p[1] for p in parts])
+        fars = torch.cat([p[2] for p in parts])
+        perm = torch.sort(m.counts, stable=True).indices
+        gmax = m.counts[perm].reshape(-1, group).amax(1).cpu()
+        return m, nears, fars, perm, gmax
 
     def march_group(gs: GridState, o, d, t_lo, S: int, aabb):
         """Windowed march of one group + (live bucket, count bucket, live
@@ -317,10 +349,11 @@ def make_staged_grid_eval(cfg: Config, model: _BaseNeRF, H: int,
         if light_d is None:
             light_d = cameras.safe_normalize(rays_o[0])
         aabb = torch.tensor(box, dtype=torch.float32, device=dev)
-        with _stage("classify", timings, dev):
-            o = torch.cat([rays_o, rays_o.new_zeros(Np - N, 3)])
-            d = torch.cat([rays_d, rays_d.new_ones(Np - N, 3) / 3 ** 0.5])
-            perm, t_lo, gstats = classify(grid_state.occ, o, d, aabb)
+        o = torch.cat([rays_o, rays_o.new_zeros(Np - N, 3)])
+        d = torch.cat([rays_d, rays_d.new_ones(Np - N, 3) / 3 ** 0.5])
+        if not cone:
+            with _stage("classify", timings, dev):
+                perm, t_lo, gstats = classify(grid_state.occ, o, d, aabb)
         with _stage("bg", timings, dev):
             if cfg.bg_radius > 0:
                 image = model.background(d)
@@ -331,6 +364,30 @@ def make_staged_grid_eval(cfg: Config, model: _BaseNeRF, H: int,
                 image = torch.ones(Np, 3, device=dev)
             depth = torch.zeros(Np, device=dev)
             ws = torch.zeros(Np, device=dev)
+        bg = (None if bg_color is None else torch.as_tensor(
+            bg_color, dtype=torch.float32, device=dev).expand(group, 3))
+        kw = dict(bound=cfg.bound, light_d=light_d,
+                  ambient_ratio=ambient_ratio, shading_code=shading_code,
+                  bg_radius=cfg.bg_radius, bg_color=bg)
+        if cone:
+            with _stage("march", timings, dev):
+                m, nears, fars, perm, gmax = march_all(grid_state.occ, o, d,
+                                                       aabb)
+            with _stage("shade", timings, dev):
+                for g in range(gmax.shape[0]):
+                    if gmax[g] == 0:
+                        continue               # the background alone
+                    ridx = perm[g * group:(g + 1) * group]
+                    valid = m.valid[ridx]
+                    out = shade_march(
+                        fns, MarchOut(m.ts[ridx], m.dts[ridx], valid,
+                                      valid.sum(1)),
+                        o[ridx], d[ridx], nears[ridx], fars[ridx],
+                        K=_pick_K_bucket(float(gmax[g]), cfg.grid_K), **kw)
+                    image[ridx] = out["image"]
+                    depth[ridx] = out["depth"]
+                    ws[ridx] = out["weights_sum"]
+            return finish(image, depth, ws, timings, dev)
         marched = []
         with _stage("march", timings, dev):
             for g in reversed(range(gstats.shape[0])):
@@ -346,16 +403,10 @@ def make_staged_grid_eval(cfg: Config, model: _BaseNeRF, H: int,
             stats = (torch.stack([x[-1] for x in marched]).cpu().tolist()
                      if marched else [])
         with _stage("shade", timings, dev):
-            bg = (None if bg_color is None else torch.as_tensor(
-                bg_color, dtype=torch.float32, device=dev).expand(group, 3))
             for (ridx, o_g, d_g, m, nears, fars, _), (glive, gcount, ltot) \
                     in zip(marched, stats):
                 if gcount == 0.0:
                     continue                   # flagged, but truly empty
-                kw = dict(bound=cfg.bound, light_d=light_d,
-                          ambient_ratio=ambient_ratio,
-                          shading_code=shading_code,
-                          bg_radius=cfg.bg_radius, bg_color=bg)
                 if ltot >= 0.0:
                     mb = _pick_K_bucket(max(ltot / group, 1.0)
                                         * cfg.grid_compact_slack, cfg.grid_K)
@@ -369,28 +420,40 @@ def make_staged_grid_eval(cfg: Config, model: _BaseNeRF, H: int,
                 image[ridx] = out["image"]
                 depth[ridx] = out["depth"]
                 ws[ridx] = out["weights_sum"]
+        return finish(image, depth, ws, timings, dev)
+
+    def finish(image, depth, ws, timings, dev):
+        N = H * W
         with _stage("finish", timings, dev):
-            frame = {"image": image[:N].reshape(H, W, 3),
-                     "depth": depth[:N].reshape(H, W),
-                     "weights_sum": ws[:N].reshape(H, W)}
-        return frame
+            return {"image": image[:N].reshape(H, W, 3),
+                    "depth": depth[:N].reshape(H, W),
+                    "weights_sum": ws[:N].reshape(H, W)}
 
     return render_frame
 
 
-def make_eval_render(cfg: Config, model: _BaseNeRF, H: int, W: int):
+def make_eval_render(cfg: Config, model: _BaseNeRF, H: int, W: int,
+                     dp: Optional[sharding.DataParallel] = None):
     """Full-frame eval renderer: white background unless the model has a
     background net, albedo shading, no perturbation (trainer.py:862-934).
-    The grid renderer takes the staged eval (the port has no device mesh).
-    The stratified renderer renders chunks of min(H W, cfg.max_ray_batch)
-    rays with light_d = normalize(rays_o[0]), the deterministic sample_pdf
-    grid and the f32 table (the bf16 view is the staged grid eval's only).
-    Returns render_frame with make_staged_grid_eval's signature (grid_state
-    unused; timings receives the frame's synced wall as "render")."""
-    if cfg.grid_ray:
+    On one rank the grid renderer takes the staged eval. The stratified
+    renderer renders chunks of min(H W, cfg.max_ray_batch) rays with
+    light_d = normalize(rays_o[0]), the deterministic sample_pdf grid and
+    the f32 table (the bf16 view is the staged grid eval's only).
+
+    With a data-parallel group of more than one rank (dp) the frame's rays
+    are sharded over the ranks (sharding.shard_rays_render) and each rank
+    renders its slice in chunks of min(max(H W // ranks, 1),
+    cfg.max_ray_batch) rays at the default shading, as the JAX package's
+    mesh path does (trainer.py:872, 895, 924): the grid renderer through
+    render_grid at K = grid_K, not the staged eval; the shading arguments
+    are then ignored. Returns render_frame with make_staged_grid_eval's
+    signature (timings receives the frame's synced wall as "render")."""
+    n = dp.world_size if dp is not None else 1
+    if cfg.grid_ray and n == 1:
         return make_staged_grid_eval(cfg, model, H, W)
     fns = make_field_fns(model)._replace(normal=None)
-    chunk = min(H * W, cfg.max_ray_batch)
+    chunk = min(max(H * W // n, 1), cfg.max_ray_batch)
 
     @torch.no_grad()
     def render_frame(rays_o, rays_d, grid_state=None,
@@ -398,22 +461,37 @@ def make_eval_render(cfg: Config, model: _BaseNeRF, H: int, W: int):
                      ambient_ratio: float = 1.0, bg_color=None, light_d=None,
                      timings: Optional[Dict[str, float]] = None):
         dev = rays_o.device
-        if light_d is None:
-            light_d = cameras.safe_normalize(rays_o[0])
+        if n > 1:
+            shading_code, ambient_ratio = SHADING_ALBEDO, 1.0
+            bg_color = light_d = None
 
-        def render_chunk(o, d):
+        def render_chunk(o, d, ld):
             bg = (None if bg_color is None else torch.as_tensor(
                 bg_color, dtype=torch.float32, device=dev).expand(
                     o.shape[0], 3))
-            return render_stratified(
-                fns, o, d, bound=cfg.bound, min_near=cfg.min_near,
-                num_steps=cfg.num_steps, upsample_steps=cfg.upsample_steps,
-                bg_radius=cfg.bg_radius, light_d=light_d,
-                ambient_ratio=ambient_ratio, shading_code=shading_code,
-                bg_color=bg, perturb=False)
+            kw = dict(bound=cfg.bound, min_near=cfg.min_near,
+                      bg_radius=cfg.bg_radius, ambient_ratio=ambient_ratio,
+                      shading_code=shading_code, bg_color=bg, perturb=False,
+                      light_d=ld)
+            if cfg.grid_ray:
+                out = render_grid(fns, grid_state, o, d,
+                                  max_steps=cfg.max_steps, K=cfg.grid_K,
+                                  dt_gamma=cfg.dt_gamma, **kw)
+            else:
+                out = render_stratified(
+                    fns, o, d, num_steps=cfg.num_steps,
+                    upsample_steps=cfg.upsample_steps, **kw)
+            return {k: out[k] for k in ("image", "depth", "weights_sum")}
 
+        def render_rays(o, d):
+            ld = cameras.safe_normalize(o[0]) if light_d is None else light_d
+            return render_rays_chunked(
+                lambda oc, dc: render_chunk(oc, dc, ld), o, d, chunk)
+
+        if n > 1:
+            render_rays = sharding.shard_rays_render(render_rays, dp)
         with _stage("render", timings, dev):
-            out = render_rays_chunked(render_chunk, rays_o, rays_d, chunk)
+            out = render_rays(rays_o, rays_d)
         return {"image": out["image"].reshape(H, W, 3),
                 "depth": out["depth"].reshape(H, W),
                 "weights_sum": out["weights_sum"].reshape(H, W)}
@@ -444,25 +522,61 @@ class Trainer:
     """Experiment runner: workspace, occupancy grid and adaptive budgets
     (grid renderer), checkpoints, eval dumps and the 360-degree test render
     (API of the reference Trainer, nerf/utils.py:151-968). ``renderer`` is
-    "grid" or "stratified", by cfg.grid_ray (trainer.py:952)."""
+    "grid" or "stratified", by cfg.grid_ray (trainer.py:952).
+
+    With cfg.ema_decay the Trainer keeps f32 EMA copies of the parameters
+    (``ema``, initialised to them and updated after every optimizer step,
+    trainer.py:196-202); checkpoints carry them, and the "best" snapshot
+    stores them as its model weights (trainer.py:1333-1346).
+
+    ``parallel`` (a sharding.DataParallel, one per rank; main() spawns the
+    ranks for cfg.n_devices > 1) makes the Trainer one rank of a
+    data-parallel run: the model and grid start from rank 0's, the step's
+    draws come from generators of the rank's own, the gradients, loss and
+    metrics are averaged over the ranks before the update (so every rank
+    picks the same budgets and holds the same parameters), rank 0 refreshes
+    the occupancy grid and broadcasts it, eval frames are ray-sharded, and
+    only rank 0 writes logs, checkpoints and frames. With one rank the
+    generators and draw streams are those of a plain run."""
 
     def __init__(self, name: str, cfg: Config,
                  model: Optional[_BaseNeRF] = None,
                  guidance: Optional[Guidance] = None,
                  workspace: Optional[str] = None,
                  use_checkpoint: Optional[str] = None,
-                 device: Optional[str] = None):
+                 device: Optional[str] = None,
+                 parallel: Optional[sharding.DataParallel] = None):
         self.name = name
         self.cfg = cfg
-        self.device = resolve_device(device or cfg.device)
+        self.dp = parallel if parallel and parallel.world_size > 1 else None
+        if parallel is not None:
+            self.device = parallel.device
+        else:
+            self.device = resolve_device(device or cfg.device)
+            if sharding.world_size(cfg.n_devices, self.device) > 1:
+                raise ValueError(
+                    f"n_devices={cfg.n_devices} runs one process per rank: "
+                    "start it through dreamfusion_torch.main (or give each "
+                    "rank's Trainer its sharding.DataParallel)")
+        self.rank = parallel.rank if parallel is not None else 0
         self.gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self.host_gen = torch.Generator().manual_seed(cfg.seed)
+        # the step's draws: a rank's own stream under data parallelism
+        # (the JAX package folds its key by the device index)
+        self.step_gen, self.step_host_gen = self.gen, self.host_gen
+        if self.dp is not None:
+            rank_seed = cfg.seed * 1_000_003 + 1 + self.rank
+            self.step_gen = torch.Generator(
+                device=self.device).manual_seed(rank_seed)
+            self.step_host_gen = torch.Generator().manual_seed(rank_seed)
         self.model = model if model is not None else build_model(
             cfg, self.device, self.gen)
         if cfg.pretrained_dvgo and hasattr(self.model, "load_pretrained"):
             # a model built above holds the file's state already
             self.model.load_pretrained(
                 cfg.pretrained_dvgo if model is not None else None)
+        if self.dp is not None:
+            sharding.broadcast_module(self.model, self.dp)
         self.guidance = guidance if guidance is not None else build_guidance(
             cfg, self.device, self.gen)
         self.workspace = workspace or cfg.workspace
@@ -474,6 +588,10 @@ class Trainer:
         self.log_path = os.path.join(self.workspace, f"log_{name}.jsonl")
 
         self.opt, self.lr_sched = build_optimizer(cfg, self.model)
+        self.ema: Optional[Dict[str, torch.Tensor]] = (
+            {k: p.detach().float().clone()
+             for k, p in self.model.named_parameters()}
+            if cfg.ema_decay else None)
         self.step = 0
         self.grid_state: Optional[GridState] = (
             init_grid_state(cfg.cascade, cfg.grid_size, self.device)
@@ -508,6 +626,8 @@ class Trainer:
         return torch.cat(zs, dim=0)
 
     def log(self, record: Dict[str, Any]):
+        if self.rank != 0:
+            return
         with open(self.log_path, "a") as f:
             f.write(json.dumps(record) + "\n")
 
@@ -551,14 +671,20 @@ class Trainer:
 
     def update_grid(self, refresh_idx: int,
                     jitter: Optional[torch.Tensor] = None) -> GridState:
-        """One occupancy refresh (full for the first 4, then quarters)."""
+        """One occupancy refresh (full for the first 4, then quarters); under
+        data parallelism rank 0's, broadcast to the other ranks."""
         with record_function("grid_refresh"):
-            self.grid_state = update_grid(
-                self.model.density, self.grid_state, bound=self.cfg.bound,
-                density_thresh=self.cfg.density_thresh,
-                decay=self.cfg.grid_decay,
-                partial=refresh_partial(refresh_idx), generator=self.gen,
-                jitter=jitter)
+            if self.rank == 0:
+                self.grid_state = update_grid(
+                    self.model.density, self.grid_state,
+                    bound=self.cfg.bound,
+                    density_thresh=self.cfg.density_thresh,
+                    decay=self.cfg.grid_decay,
+                    partial=refresh_partial(refresh_idx), generator=self.gen,
+                    jitter=jitter)
+            if self.dp is not None:
+                for t in self.grid_state:
+                    self.dp.broadcast(t)
         return self.grid_state
 
     def train_step(self, draws: Optional[Dict[str, Any]] = None
@@ -567,12 +693,18 @@ class Trainer:
         grads_fn = make_grads_fn(self.cfg, self.model, self.guidance,
                                  grid_K=self._cur_grid_K,
                                  compact_M=self._cur_compact_M)
+        if self.dp is not None:
+            grads_fn = sharding.data_parallel_grads(grads_fn, self.model,
+                                                    self.dp)
         loss, metrics = grads_fn(self.step, self.text_z, self.grid_state,
-                                 draws=draws, generator=self.gen,
-                                 host_generator=self.host_gen)
+                                 draws=draws, generator=self.step_gen,
+                                 host_generator=self.step_host_gen)
         with record_function("step/optimizer"):
             self.opt.step()
             self.lr_sched.step()
+            if self.ema is not None:
+                ema_update(self.ema, dict(self.model.named_parameters()),
+                           self.cfg.ema_decay)
         self.step += 1
         return metrics
 
@@ -607,8 +739,8 @@ class Trainer:
 
     def _get_eval_render(self, H: int, W: int):
         if self._eval_render is None or self._eval_render[0] != (H, W):
-            self._eval_render = ((H, W), make_eval_render(self.cfg,
-                                                          self.model, H, W))
+            self._eval_render = ((H, W), make_eval_render(
+                self.cfg, self.model, H, W, self.dp))
         return self._eval_render[1]
 
     def _render_orbit_frame(self, i: int, size: int, H: int, W: int,
@@ -623,8 +755,10 @@ class Trainer:
     def _save_frame(self, out, path_rgb: str,
                     path_depth: Optional[str] = None) -> np.ndarray:
         """PNGs of the frame's image and, optionally, its depth scaled to
-        [0, 255]; returns the uint8 image."""
+        [0, 255] (rank 0 only); returns the uint8 image."""
         rgb = (out["image"].clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
+        if self.rank != 0:
+            return rgb
         write_png(path_rgb, rgb)
         if path_depth:
             d = out["depth"].float().cpu().numpy()
@@ -670,7 +804,7 @@ class Trainer:
             out = self._render_orbit_frame(i, size, self.cfg.H, self.cfg.W)
             frames.append(self._save_frame(
                 out, os.path.join(tdir, f"{self.name}_{i:04d}_rgb.png")))
-        if write_video and frames:
+        if write_video and frames and self.rank == 0:
             try:
                 import imageio
             except ImportError:
@@ -688,14 +822,22 @@ class Trainer:
 
     # -- checkpoints ------------------------------------------------------------------
 
-    def save_checkpoint(self, best: bool = False) -> str:
+    def save_checkpoint(self, best: bool = False) -> Optional[str]:
         """Rotating step checkpoints; best=True writes the separate "best"
-        snapshot, which rotation leaves alone (nerf/utils.py:847-968)."""
+        snapshot, which rotation leaves alone (nerf/utils.py:847-968), with
+        the EMA weights as its model weights when the EMA is on. Rank 0
+        writes; the other ranks return None."""
+        if self.rank != 0:
+            return None
         name = "best.pt" if best else f"step_{self.step:08d}.pt"
         path = os.path.join(self.ckpt_dir, name)
+        model_sd = self.model.state_dict()
+        if best and self.ema is not None:
+            model_sd = {k: self.ema.get(k, v) for k, v in model_sd.items()}
         torch.save({
             "step": self.step,
-            "model": self.model.state_dict(),
+            "model": model_sd,
+            "ema": self.ema,
             "optimizer": self.opt.state_dict(),
             "lr_sched": self.lr_sched.state_dict(),
             "grid_state": (None if self.grid_state is None
@@ -737,6 +879,11 @@ class Trainer:
                 self.stats = json.load(f)
         ck = torch.load(path, map_location=self.device, weights_only=False)
         self.model.load_state_dict(ck["model"])
+        if self.ema is not None:
+            # a checkpoint without an EMA starts it from its weights
+            src = ck.get("ema") or dict(self.model.named_parameters())
+            for k, e in self.ema.items():
+                e.copy_(src[k])
         self.opt.load_state_dict(ck["optimizer"])
         self.lr_sched.load_state_dict(ck["lr_sched"])
         if ck["grid_state"] is not None:

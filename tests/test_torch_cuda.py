@@ -696,3 +696,62 @@ def test_o2_step_on_the_gpu_matches_the_cpu(dev, monkeypatch):
     gap = l2(gg, gc)
     for k in gc:
         assert gap[k] <= max(1e-4, 3 * ctrl[k]), (k, gap[k], ctrl[k])
+
+
+@pytest.mark.parametrize("bound,dt_gamma,perturb", [(1.0, 1 / 128, True),
+                                                    (2.0, 0.05, False)])
+def test_march_cone_kernel_is_bitwise_its_plain_version(dev, bound, dt_gamma,
+                                                        perturb):
+    """Kernel F against march_rays_cone_plain on the card: 2,048 seeded rays
+    through a seeded grid (C = 1, and C = 2 at bound 2), K = 16 so that at
+    dt_gamma 1/128 some rays overflow: counts, ts, dts and valid the same
+    bits; one launch per call of march_rays."""
+    from dreamfusion_torch.ops import cuda as kcuda
+    from dreamfusion_torch.ops import marching
+    from dreamfusion_torch.ops.composite import near_far_from_aabb
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    C = 1 if bound == 1.0 else 2
+    occ = torch.rand(C, 64, 64, 64, device=dev, generator=g) < 0.1
+    o = torch.nn.functional.normalize(
+        torch.randn(2048, 3, device=dev, generator=g), dim=-1) * 2.5 * bound
+    d = torch.nn.functional.normalize(
+        (torch.rand(2048, 3, device=dev, generator=g) - 0.5) * bound - o,
+        dim=-1)
+    aabb = torch.tensor([-bound] * 3 + [bound] * 3, device=dev)
+    near, far = near_far_from_aabb(o, d, aabb, 0.1)
+    u = torch.rand(2048, device=dev, generator=g) if perturb else None
+    kw = dict(bound=bound, max_steps=512, K=16, dt_gamma=dt_gamma,
+              perturb=perturb, perturb_u=u)
+    n0 = kcuda.launch_counts["march_cone"]
+    got = marching.march_rays(occ, o, d, near, far, **kw)
+    assert kcuda.launch_counts["march_cone"] == n0 + 1
+    t0 = near
+    if perturb:
+        gm, lo, hi, _ = marching.cone_constants(dt_gamma, 512, C, 64)
+        t0 = near + torch.clamp(near * gm, lo, hi) * u
+    ref = marching.march_rays_cone_plain(occ, o, d, t0, far, bound=bound,
+                                         max_steps=512, K=16,
+                                         dt_gamma=dt_gamma)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    if dt_gamma < 0.01:
+        assert bool((ref.counts > 16).any())
+
+
+def test_march_cone_kernel_refuses_bad_inputs(dev):
+    """The wrapper checks device, dtype, shape and contiguity."""
+    from dreamfusion_torch.ops import marching
+
+    occ = torch.zeros(1, 8, 8, 8, dtype=torch.bool, device=dev)
+    o = torch.zeros(4, 3, device=dev)
+    t = torch.zeros(4, device=dev)
+    kw = dict(bound=1.0, max_steps=8, K=4, dt_gamma=0.01)
+    with pytest.raises(TypeError):
+        marching.march_rays_cone_cuda(occ.float(), o, o, t, t, **kw)
+    with pytest.raises(ValueError):
+        marching.march_rays_cone_cuda(occ, o.cpu(), o, t, t, **kw)
+    with pytest.raises(ValueError):
+        marching.march_rays_cone_cuda(occ, o.t().contiguous().t(), o, t,
+                                      t[:3], **kw)
