@@ -9,6 +9,12 @@ view-dependent text, stratified renderer (main.py:81-84). On the GPU
 "fp16" means bf16 compute with f32 parameters, as in the JAX package.
 ``finalize`` applies the backbone's defaults (main.py:86-89).
 
+``gui`` starts the interactive viewer and trainer (apps/gui.py),
+``save_mesh`` exports a textured mesh after the test orbit, ``max_spp`` is
+the samples a pixel the GUI accumulates while the view stays still, and
+``aabb_infer`` (set by the GUI's sliders; None = +-bound) narrows the eval
+renderer's ray box, never the train path's.
+
 The train options ``jitter_pose``, ``dt_gamma`` (cone stepping),
 ``ema_decay`` and ``optimizer`` ("adam" | "shampoo") and the data-parallel
 ``n_devices`` (0 = every visible card) are the JAX package's. Its
@@ -33,6 +39,8 @@ class Config:
     workspace: str = "workspace"
     seed: int = 0
     test: bool = False
+    gui: bool = False                   # interactive viewer (apps/gui.py)
+    save_mesh: bool = False             # export a textured mesh after test
     eval_interval: int = 10             # eval every N epochs
     guidance: str = "stable-diffusion"  # 'stable-diffusion' | 'clip' | 'none'
     ckpt: str = "latest"                # latest | scratch | <path>
@@ -59,6 +67,10 @@ class Config:
     # the staged eval's bf16 table view for the corner gathers (the
     # reference evals under fp16 autocast; parameters stay f32)
     eval_table_bf16: bool = True
+    # eval-only ray box (xmin, ymin, zmin, xmax, ymax, zmax); None = +-bound
+    # (the reference's GUI sliders, nerf/gui.py:319-345)
+    aabb_infer: Optional[Tuple[float, ...]] = None
+    max_spp: int = 1                    # GUI samples a pixel when still
 
     # -- model ---------------------------------------------------------------
     backbone: str = "grid"              # 'grid' | 'vanilla' | 'dvgo'
@@ -151,6 +163,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("-O2", action="store_true",
                    help="preset: bf16 + dir_text (stratified renderer)")
     p.add_argument("--test", action="store_true")
+    p.add_argument("--save_mesh", action="store_true")
+    p.add_argument("--gui", action="store_true")
+    p.add_argument("--max_spp", type=int, default=d.max_spp)
     p.add_argument("--device", default=None, choices=["cuda", "cpu"],
                    help="default cuda; cpu runs the plain PyTorch path")
     p.add_argument("--eval_interval", type=int, default=d.eval_interval)

@@ -116,7 +116,7 @@ def build_sd_guidance(weights: Optional[str] = None,
                       generator: Optional[torch.Generator] = None) -> Guidance:
     """Randomly initialised SD guidance: 'random-full' (SD v1.5 widths, in
     `dtype`), 'random-tiny' / None or 'random-nano' (f32, 64 px images).
-    Loading real weights is not ported."""
+    A weights directory raises: its text encoder is not ported."""
     device = resolve_device(device)
     if weights == "random-nano":
         unet, vae, latent_size, compute = nano_unet(), nano_vae(), 8, torch.float32
@@ -127,7 +127,9 @@ def build_sd_guidance(weights: Optional[str] = None,
     else:
         raise NotImplementedError(
             f"SD weights {weights!r}: only random-full / random-tiny / "
-            "random-nano are ported")
+            "random-nano are ported. A diffusers SD directory's UNet and "
+            "VAE load through guidance/sd/convert.py, but its CLIP text "
+            "encoder and tokenizer are not ported")
     unet = freeze(init_sd_module(unet.to(device), generator), compute)
     vae = freeze(init_sd_module(vae.to(device), generator), compute)
     return sd_guidance(unet, vae, latent_size, guidance_scale,

@@ -12,6 +12,8 @@ its 360-degree orbit.
       --dt_gamma 0.0078125 --jitter_pose --ema_decay 0.95
   python -m dreamfusion_torch.main -O --text "a hamburger" --optimizer shampoo
   python -m dreamfusion_torch.main -O --text "a hamburger" --n_devices 2
+  python -m dreamfusion_torch.main -O --text "a hamburger" --test --save_mesh
+  python -m dreamfusion_torch.main -O --text "a hamburger" --gui
 
 ``-O`` trains with the occupancy-grid renderer, ``-O2`` with the
 stratified renderer (64 + 64 samples a ray), both with SDS guidance on
@@ -34,8 +36,14 @@ EMA of the parameters (the "best" checkpoint holds it), ``--optimizer
 shampoo`` trains with block Shampoo in place of Adam. ``--n_devices N``
 trains data-parallel over N ranks, one process and one card each (0 =
 every visible card), with NCCL; with ``--device cpu`` over N gloo
-processes on the CPU. Mesh export and the GUI are not ported yet
-(ROADMAP.md).
+processes on the CPU.
+
+``--save_mesh`` exports a textured mesh (``<workspace>/mesh``: mesh.obj,
+mesh.mtl, albedo.png; export/mesh.py) after the test orbit, in both
+branches (rank 0 alone under ``--n_devices``). ``--gui`` opens the
+interactive viewer (apps/gui.py, dearpygui) in place of the train and test
+runs: it trains in bursts while it previews the field, or, with
+``--test``, views the latest checkpoint. It runs one process.
 """
 
 from __future__ import annotations
@@ -70,7 +78,24 @@ def run(cfg: Config,
     trainer.test()
     say(f"rendered {cfg.test_size} orbit frames at {cfg.H}x{cfg.W} into "
         f"{trainer.workspace}/results")
+    if cfg.save_mesh and trainer.rank == 0:
+        say(f"wrote {trainer.save_mesh(resolution=256)}")
     return trainer
+
+
+def launch_gui(cfg: Config):
+    """--gui (main.py:21-53): the viewer over a Trainer that trains from
+    scratch (or the latest checkpoint), or with cfg.test over the latest
+    checkpoint with no guidance. Returns the NeRFGUI after its window
+    closes."""
+    from dreamfusion_torch.apps.gui import NeRFGUI
+
+    guidance = none_guidance(cfg.device) if cfg.test else None
+    trainer = Trainer("df", cfg, guidance=guidance, workspace=cfg.workspace,
+                      use_checkpoint=cfg.ckpt)
+    gui = NeRFGUI(cfg, trainer)
+    gui.render()
+    return gui
 
 
 def _rank(dp: sharding.DataParallel, argv: Optional[List[str]]) -> int:
@@ -78,13 +103,18 @@ def _rank(dp: sharding.DataParallel, argv: Optional[List[str]]) -> int:
     return dp.rank
 
 
-def main(argv=None) -> Optional[Trainer]:
-    """The CLI. One rank: returns the Trainer. Several (--n_devices): the
-    ranks run in processes of their own, and main returns None."""
+def main(argv=None):
+    """The CLI. One rank: returns the Trainer (with --gui, the NeRFGUI).
+    Several (--n_devices): the ranks run in processes of their own, and
+    main returns None."""
     cfg = parse_config(argv)
     print(cfg)
     device = torch.device(cfg.device or "cuda")
     world = sharding.world_size(cfg.n_devices, device)
+    if cfg.gui:
+        if world > 1:
+            raise ValueError("--gui runs one process; drop --n_devices")
+        return launch_gui(cfg)
     if world == 1:
         return run(cfg)
     backend = "gloo" if device.type == "cpu" else "nccl"

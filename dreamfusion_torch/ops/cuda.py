@@ -1,11 +1,16 @@
-"""Build, load and count the port's hand-written CUDA kernels.
+"""Build, load and count the port's hand-written CUDA kernels and its host
+C++ library.
 
 Each ``dreamfusion_torch/csrc/<name>.cu`` holds one kernel family behind a
 plain C interface. It is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 ``dreamfusion_torch/build/lib<name>.so`` at first use and loaded with
-ctypes; every source gets its own ``nvcc`` process and all of them start
-together. A library is rebuilt when its source changes (the build
-directory keeps the source's hash beside the library).
+ctypes. A ``.cpp`` source (the mesh export's ``mesh_native.cpp``) is
+compiled the same way by the host C++ compiler (``$CXX``, default ``g++``;
+no ``-march`` flag, so the bits do not depend on the host CPU). Every
+source gets its own compiler process and all of them start together. A
+library is rebuilt when its source or flags change (the build directory
+keeps their hash beside the library). A failed build raises with the
+compiler's output; nothing falls back.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on a machine without ``nvcc`` or a GPU.
@@ -32,17 +37,19 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 
-# kernel family -> source file (under csrc/)
+# library -> source file (under csrc/)
 SOURCES = {
     "grid_encoder_bwd": "grid_encoder_bwd.cu",
     "fused_composite": "fused_composite.cu",
     "flash_attention": "flash_attention.cu",
     "probe_select": "probe_select.cu",
     "march_cone": "march_cone.cu",
+    "mesh_native": "mesh_native.cpp",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared", "-Wall"]
 
 launch_counts: Dict[str, int] = {
     "grid_encoder_bwd": 0,
@@ -76,14 +83,21 @@ def _nvcc() -> str:
                        "CUDA kernels are built from dreamfusion_torch/csrc")
 
 
-def _digest(src: Path) -> str:
+def _command(src: Path) -> List[str]:
+    """The compiler and flags for one source, by its suffix."""
+    if src.suffix == ".cpp":
+        return [os.environ.get("CXX", "g++"), *CXX_FLAGS]
+    return [_nvcc(), *NVCC_FLAGS]
+
+
+def _digest(src: Path, cmd: List[str]) -> str:
     h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(cmd).encode())
     return h.hexdigest()
 
 
 def build(names: Optional[List[str]] = None) -> Dict[str, float]:
-    """Compile the named kernel libraries (default: all) in parallel.
+    """Compile the named libraries (default: all) in parallel.
     Returns the seconds each compile took (0.0 when it was up to date);
     raises with the compiler's output if any compile fails."""
     names = list(SOURCES) if names is None else names
@@ -94,22 +108,27 @@ def build(names: Optional[List[str]] = None) -> Dict[str, float]:
         src = CSRC_DIR / SOURCES[name]
         lib = BUILD_DIR / f"lib{name}.so"
         stamp = BUILD_DIR / f"lib{name}.sha256"
-        digest = _digest(src)
+        cmd = _command(src)
+        digest = _digest(src, cmd)
         if lib.exists() and stamp.exists() and stamp.read_text() == digest:
             continue
         tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, lib, stamp, digest)
+        try:
+            p = subprocess.Popen([*cmd, "-o", str(tmp), str(src)],
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+        except OSError as e:
+            raise RuntimeError(f"cannot run the compiler {cmd[0]!r} for "
+                               f"{SOURCES[name]}: {e}") from e
+        procs[name] = (p, cmd[0], tmp, lib, stamp, digest)
     seconds = {name: 0.0 for name in names}
     errors = []
-    for name, (p, tmp, lib, stamp, digest) in procs.items():
+    for name, (p, compiler, tmp, lib, stamp, digest) in procs.items():
         out, _ = p.communicate()
         seconds[name] = time.perf_counter() - t0
         build_log[name] = out
         if p.returncode != 0:
-            errors.append(f"nvcc failed for {SOURCES[name]}:\n{out}")
+            errors.append(f"{compiler} failed for {SOURCES[name]}:\n{out}")
             continue
         os.replace(tmp, lib)
         stamp.write_text(digest)
@@ -119,7 +138,7 @@ def build(names: Optional[List[str]] = None) -> Dict[str, float]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library `name`, built first if needed."""
+    """The loaded library `name`, built first if needed."""
     lib = _libs.get(name)
     if lib is None:
         build([name])

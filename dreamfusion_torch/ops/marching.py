@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -604,13 +604,18 @@ def render_grid(fns, grid_state: GridState, rays_o, rays_d, *,
                 generator: Optional[torch.Generator] = None,
                 light_n: Optional[torch.Tensor] = None,
                 perturb_u: Optional[torch.Tensor] = None,
-                smooth_n: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                smooth_n: Optional[torch.Tensor] = None,
+                aabb: Optional[Sequence[float]] = None
+                ) -> Dict[str, torch.Tensor]:
     """Full grid-accelerated render (the reference's run_cuda,
     renderer.py:446-559). Draws (optional): light_n [3] standard normal
     (light_d = normalize(rays_o[0] + light_n)), perturb_u [N], smooth_n
-    (standard normal, the smoothness-loss jitter)."""
+    (standard normal, the smoothness-loss jitter). aabb (optional, the
+    eval's cfg.aabb_infer): the ray box (xmin, ymin, zmin, xmax, ymax,
+    zmax) in place of +-bound."""
     dev = rays_o.device
-    aabb = torch.tensor([-bound] * 3 + [bound] * 3, dtype=torch.float32,
+    aabb = torch.tensor(list(aabb) if aabb is not None
+                        else [-bound] * 3 + [bound] * 3, dtype=torch.float32,
                         device=dev)
     nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, min_near)
     if light_d is None:

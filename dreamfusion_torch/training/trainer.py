@@ -26,6 +26,10 @@ a transmittance-live estimate, and a compact shade per group composited
 on the compact buffer in one launch (kernel C, the compact compositor),
 pasted into the frame by ray index.
 
+``Trainer.advance`` is one step of ``train`` (the GUI's bursts take it),
+``Trainer.reset_weights`` restarts the asset (the GUI's reset) and
+``Trainer.save_mesh`` exports it as a textured mesh (export/mesh.py).
+
 The step's parts run under ``torch.profiler.record_function`` spans
 (step/cameras, step/render, step/guidance, step/backward, step/optimizer,
 grid_refresh), the eval frame's under eval/classify, eval/bg, eval/march,
@@ -258,15 +262,20 @@ def make_staged_grid_eval(cfg: Config, model: _BaseNeRF, H: int,
     largest count (kernel B-fwd) and pasted by ray index; no live cut and
     no kernel C, as in the JAX package.
 
-    Groups hold cfg.max_ray_batch rays (4,096, the JAX default group).
-    Returns render_frame(rays_o, rays_d, grid_state,
+    Groups hold cfg.max_ray_batch rays (4,096, the JAX default group); a
+    frame whose H W is not a multiple of it is padded with rays that miss
+    the box. cfg.aabb_infer (the GUI's box), when set, replaces +-bound as
+    the rays' box. Returns render_frame(rays_o, rays_d, grid_state,
     shading_code=albedo, ambient_ratio=1.0, bg_color=None, light_d=None,
     timings=None) -> {"image" [H,W,3], "depth" [H,W], "weights_sum" [H,W]}.
     A timings dict receives each stage's synced wall seconds."""
     group = cfg.max_ray_batch
     fns = make_field_fns(model, table_bf16=cfg.eval_table_bf16)._replace(
         normal=None)
-    box = [-cfg.bound] * 3 + [cfg.bound] * 3
+    # the GUI's aabb_infer narrows the eval's ray box only, never the
+    # train path's (trainer.py:280-283)
+    box = (list(cfg.aabb_infer) if cfg.aabb_infer is not None
+           else [-cfg.bound] * 3 + [cfg.bound] * 3)
     pool_factor = 4 if cfg.cascade == 1 else 1
     stride = (min(max_pooled_stride(cfg.max_steps, cfg.grid_size,
                                     pool_factor), 16)
@@ -447,7 +456,9 @@ def make_eval_render(cfg: Config, model: _BaseNeRF, H: int, W: int,
     cfg.max_ray_batch) rays at the default shading, as the JAX package's
     mesh path does (trainer.py:872, 895, 924): the grid renderer through
     render_grid at K = grid_K, not the staged eval; the shading arguments
-    are then ignored. Returns render_frame with make_staged_grid_eval's
+    are then ignored. The grid renderer's rays take cfg.aabb_infer as
+    their box when it is set; the stratified renderer keeps +-bound, as in
+    the JAX package. Returns render_frame with make_staged_grid_eval's
     signature (timings receives the frame's synced wall as "render")."""
     n = dp.world_size if dp is not None else 1
     if cfg.grid_ray and n == 1:
@@ -476,7 +487,8 @@ def make_eval_render(cfg: Config, model: _BaseNeRF, H: int, W: int,
             if cfg.grid_ray:
                 out = render_grid(fns, grid_state, o, d,
                                   max_steps=cfg.max_steps, K=cfg.grid_K,
-                                  dt_gamma=cfg.dt_gamma, **kw)
+                                  dt_gamma=cfg.dt_gamma,
+                                  aabb=cfg.aabb_infer, **kw)
             else:
                 out = render_stratified(
                     fns, o, d, num_steps=cfg.num_steps,
@@ -708,6 +720,19 @@ class Trainer:
         self.step += 1
         return metrics
 
+    def advance(self, last_metrics: Optional[Dict[str, Any]] = None
+                ) -> Dict[str, Any]:
+        """One step of train(): on the grid renderer, every
+        update_extra_interval steps an occupancy refresh and (adaptive
+        budgets) a re-pick from the last step's metrics; then train_step."""
+        cfg = self.cfg
+        if (self.renderer == "grid"
+                and self.step % cfg.update_extra_interval == 0):
+            self.update_grid(self.step // cfg.update_extra_interval)
+            if cfg.grid_K_adaptive and last_metrics is not None:
+                self._repick_budgets(last_metrics)
+        return self.train_step()
+
     def train(self, max_steps: Optional[int] = None, log_interval: int = 50,
               checkpoint_at_end: bool = True):
         cfg = self.cfg
@@ -715,13 +740,7 @@ class Trainer:
         t0 = time.time()
         metrics = None
         while self.step < max_steps:
-            step = self.step
-            if (self.renderer == "grid"
-                    and step % cfg.update_extra_interval == 0):
-                self.update_grid(step // cfg.update_extra_interval)
-                if cfg.grid_K_adaptive and metrics is not None:
-                    self._repick_budgets(metrics)
-            metrics = self.train_step()
+            metrics = self.advance(metrics)
             self.loss_history.append(metrics["loss"])
             if self.step % log_interval == 0 or self.step == max_steps:
                 rec = {k: float(v) for k, v in metrics.items()}
@@ -735,7 +754,40 @@ class Trainer:
         if checkpoint_at_end:
             self.save_checkpoint()
 
+    def reset_weights(self) -> None:
+        """The GUI's reset (trainer.py:1025-1050; nerf/gui.py:221-233): the
+        model re-initialised from the trainer's generator (a --backbone
+        dvgo field reloads its pretrained scene), a new optimizer and
+        schedule (Adam or Shampoo, no state kept), step 0, the EMA restarted
+        from the new weights, a fresh occupancy grid and the first step's
+        sample budgets. Under data parallelism every rank draws the same
+        init from its generator, and rank 0's is broadcast."""
+        cfg = self.cfg
+        self.model.reset_parameters(self.gen)
+        if cfg.pretrained_dvgo and hasattr(self.model, "load_pretrained"):
+            self.model.load_pretrained(cfg.pretrained_dvgo)
+        if self.dp is not None:
+            sharding.broadcast_module(self.model, self.dp)
+        self.opt, self.lr_sched = build_optimizer(cfg, self.model)
+        if self.ema is not None:
+            self.ema = {k: p.detach().float().clone()
+                        for k, p in self.model.named_parameters()}
+        self.step = 0
+        if self.renderer == "grid":
+            self.grid_state = init_grid_state(cfg.cascade, cfg.grid_size,
+                                              self.device)
+        self._cur_grid_K, self._cur_compact_M = cfg.grid_K, None
+        self._mean_count_ema = None
+        self.loss_history = []
+        self.stats = {"valid_loss": [], "best_result": None}
+
     # -- evaluation / test (trainer.py:1216-1301) ---------------------------------
+
+    def set_config(self, cfg: Config) -> None:
+        """Replace the config between steps (the GUI's sliders) and drop
+        the cached eval renderer, which is built from it."""
+        self.cfg = cfg
+        self._eval_render = None
 
     def _get_eval_render(self, H: int, W: int):
         if self._eval_render is None or self._eval_render[0] != (H, W):
@@ -819,6 +871,26 @@ class Trainer:
                 imageio.mimwrite(os.path.join(tdir, f"{self.name}_rgb.gif"),
                                  frames, fps=25, loop=0)
         return frames
+
+    def save_mesh(self, resolution: int = 256, chunk: int = 262144,
+                  timings: Optional[Dict[str, float]] = None,
+                  stats: Optional[Dict[str, Any]] = None) -> str:
+        """Textured mesh of the field into <workspace>/mesh (mesh.obj,
+        mesh.mtl, albedo.png with a 1024^2 texture; trainer.py:1303-1326):
+        the field's density
+        on the resolution^3 lattice, queried on the trainer's device in
+        chunks of `chunk` points, cut at min(mean density of the occupancy
+        grid, density_thresh) (density_thresh without a grid). Returns the
+        .obj path; timings and stats as export_textured_mesh."""
+        from dreamfusion_torch.export.mesh import export_textured_mesh
+
+        mean_density = (None if self.grid_state is None
+                        else float(self.grid_state.mean_density))
+        return export_textured_mesh(
+            self.model.density, os.path.join(self.workspace, "mesh"),
+            resolution=resolution, density_thresh=self.cfg.density_thresh,
+            mean_density=mean_density, chunk=chunk,
+            device=self.device, timings=timings, stats=stats)
 
     # -- checkpoints ------------------------------------------------------------------
 

@@ -15,8 +15,8 @@ It covers the NeRF fields (tables, MLPs, background net; the vanilla
 field's ``sigma_net.block_i.{dense,norm}``, ``block_0.skip`` and
 ``dense_out``; the editing field's ``main.density``, ``main.k0``,
 ``main.rgbnet.*``), the SD UNet and VAE, and the CLIP model of
-guidance/clip.py (a FlaxCLIPModel's tree).
-VAE decoder parameters are dropped: the port's VAE is encoder-only.
+guidance/clip.py (a FlaxCLIPModel's tree); a VAE tree fills the whole
+port VAE, its ``decoder`` and ``post_quant_conv`` included.
 
 ``from_jax_grid_state(state)`` carries the occupancy-grid state across, so
 that both packages render a frame from the same grid.
@@ -31,9 +31,6 @@ import torch
 
 from dreamfusion_torch.device import resolve_device
 from dreamfusion_torch.ops.marching import GridState
-
-_DROPPED_PREFIXES = ("decoder.", "post_quant_conv.")
-
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     flat = {}
@@ -67,8 +64,6 @@ def from_jax_params(np_tree: Mapping) -> Dict[str, torch.Tensor]:
     """flax params (numpy leaves) -> PyTorch state dict (f32 tensors)."""
     out = {}
     for name, arr in _flatten(np_tree).items():
-        if name.startswith(_DROPPED_PREFIXES):
-            continue
         key, val = _convert(name, arr)
         out[key] = torch.from_numpy(np.array(val, np.float32, order="C"))
     return out
