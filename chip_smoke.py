@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases build,o2,kernels      # path A only
     python3 chip_smoke.py --phases build,options,dp,kernels   # slice 9
     python3 chip_smoke.py --phases build,txt2img,export,gui,kernels  # slice 10
+    python3 chip_smoke.py --phases build,pretrain,sd_dir     # slice 11
 
 Phases:
   build    compile every CUDA kernel of the main path from
@@ -122,6 +123,35 @@ Phases:
            sample; adaptive resolution, so frames such as 357x357 that pad
            the eval's last group), reset_weights, one more burst and
            preview; burst sizes and ms, preview sizes, ms and spp;
+  pretrain DVGO pretraining (training/nerf_pipeline.train_nerf_models) at
+           the published DVGO Blender widths (coarse 1,024,000 voxels, k0
+           3; fine 160^3, k0 12, a 128 x 3 ResMLP, PE 5 / 4; 8,192 rays a
+           step) on an analytic ball coloured by its normal, written in the
+           Blender layout (100 train, 4 val, 4 test views of 400x400, near 2
+           far 6, cameras at radius 4) as PNGs by write_png and read back by
+           load_data; cut in depth to 300 coarse iterations from 512,000
+           voxels with one pg_scale milestone (scale_volume_grid) and 300
+           fine (a fine step takes ~0.48 s, PERF.md): steps/s of each
+           stage, peak memory, the test PSNR of the untrained and the
+           trained fine field (the pipeline's mean of batch PSNRs, and of
+           the pooled error; trained >= untrained + 5 dB in both), one
+           fine step under torch.profiler, the .dvgo write and
+           read walls; the .dvgo into DVGOEditNetwork (sigma and albedo at
+           65,536 points equal the fine field's, atol 1e-6), 3 editing steps
+           (-O --backbone dvgo --bg_radius 0, SD random-full: B and K5), and
+           an 800x800 ImageRenderer frame against the analytic scene; the
+           pretraining itself launches no hand-written kernel (its path has
+           none: dense grid_sample_3d, cumprod compositing);
+  sd_dir   a whole SD directory at SD v1.5 widths found by the probe: the
+           random-full UNet and VAE in float16 safetensors under diffusers
+           names (~1.7 GB), a random ViT-L/14-width text encoder and a
+           synthetic BPE tokenizer, written in a temporary directory;
+           $SD_WEIGHTS_DIR set for the phase only; build_guidance with
+           sd_weights None must pick it; every loaded tensor equal to the
+           file after the compute dtype's cast, ids and text embeddings of
+           two prompts equal to the CPU path (rtol 1e-5), one UNet eps
+           against the source module; 5 SDS steps of -O on it; the load
+           wall, text-encode ms and steps/s; the directory deleted;
   kernels  each kernel against its plain PyTorch version on the card at the
            main paths' shapes (grid-encoder scatter at the dense and the
            compacted steps' sample counts and all 16 level sizes, plus a
@@ -265,7 +295,11 @@ def device_time_and_launches(fn, reps: int = 20, warmup: int = 3):
     duplicated, and the counts are printed. Each kernel's time is its mean
     over the events that arrived times its launches a call (its events
     over reps, rounded, at least 1); a session that saw no kernel is run
-    again."""
+    again. Where three sessions saw no kernel, or none of the port's
+    kernels where its wrappers counted launches, the profiler lost the
+    call's events: the time is then queued_cuda_ms's and the launches a
+    call are the counted ones (None where fn launches none of the port's
+    kernels)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from dreamfusion_torch.ops import cuda as kcuda
@@ -286,7 +320,7 @@ def device_time_and_launches(fn, reps: int = 20, warmup: int = 3):
         counted = sum(kcuda.launch_counts.values()) - counted
         ms = launches = own = 0
         uneven = []
-        for e in got[0]:
+        for e in (got[0] if got else ()):
             if str(e.device_type).endswith("CUDA") and e.count:
                 own += e.count if _own_source(e.key, sources) else 0
                 if e.count % reps:
@@ -301,9 +335,40 @@ def device_time_and_launches(fn, reps: int = 20, warmup: int = 3):
                 f"the port's kernels {own} events for {counted} counted "
                 f"launches; not a multiple of {reps}: "
                 + ("; ".join(uneven) or "none"))
-        if launches:
+        if launches and (own or not counted):
             return ms, launches
-    raise RuntimeError("torch.profiler recorded no kernel of the call")
+    ms = queued_cuda_ms(fn, reps, warmup)
+    launches = max(1, round(counted / reps)) if counted else None
+    log(f"[profile] torch.profiler lost the call's kernels in 3 sessions: "
+        f"{ms:.4f} ms a call by CUDA events behind a queued sleep, "
+        f"{launches} counted launches a call")
+    return ms, launches
+
+
+def queued_cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn() over reps calls by CUDA events, with the
+    stream held by a sleep kernel while the host issues the calls, so that
+    the events time the device and not the host's launch rate (fn must not
+    synchronize)."""
+    import time
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / warmup
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # about 2e6 cycles a millisecond at the card's clock: twice the host's
+    # issue time of the reps calls, and at least 5 ms
+    torch.cuda._sleep(int(2e6 * max(5.0, 2 * host_ms * reps)))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -2606,6 +2671,530 @@ def phase_gui(guidance=None, bursts: int = 3):
     return counts
 
 
+# -- slice 11: DVGO pretraining and a local SD directory ----------------------------
+
+BALL_RADIUS = 1.0
+BLENDER_ANGLE_X = 0.6911112070083618      # nerf_synthetic's camera_angle_x
+
+
+def _ball_view(H: int, W: int, focal: float, c2w: np.ndarray) -> np.ndarray:
+    """The analytic ball scene seen from c2w: RGBA uint8 [H, W, 4], the
+    ball of radius BALL_RADIUS at the origin coloured by its unit normal
+    (0.5 + 0.5 n), transparent elsewhere."""
+    from dreamfusion_torch.datasets.rays import get_rays_of_a_view
+
+    K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]])
+    ro, _, vd = get_rays_of_a_view(H, W, K, c2w)
+    o, d = ro.reshape(-1, 3).astype(np.float64), vd.reshape(-1, 3)
+    b = (o * d).sum(-1)
+    disc = b * b - ((o * o).sum(-1) - BALL_RADIUS ** 2)
+    hit = disc > 0
+    t = -b - np.sqrt(np.maximum(disc, 0.0))
+    n = (o + t[:, None] * d) / BALL_RADIUS
+    rgba = np.zeros((H * W, 4))
+    rgba[hit, :3] = 0.5 + 0.5 * n[hit]
+    rgba[hit, 3] = 1.0
+    return np.round(rgba * 255).astype(np.uint8).reshape(H, W, 4)
+
+
+def write_ball_scene(root: str, n_train: int = 100, n_val: int = 4,
+                     n_test: int = 4, size: int = 400) -> None:
+    """The ball scene in the Blender layout (transforms_{split}.json and
+    RGBA PNGs by the port's write_png), nerf_synthetic at half resolution:
+    cameras on the upper hemisphere at radius 4 looking at the origin."""
+    from dreamfusion_torch.datasets.loaders import _pose_spherical
+    from dreamfusion_torch.training.trainer import write_png
+
+    focal = 0.5 * size / math.tan(0.5 * BLENDER_ANGLE_X)
+    rng = np.random.RandomState(0)
+    for split, n in (("train", n_train), ("val", n_val), ("test", n_test)):
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        frames = []
+        for i in range(n):
+            c2w = _pose_spherical(rng.uniform(-180, 180),
+                                  rng.uniform(-80, -5), 4.0)
+            write_png(os.path.join(root, split, f"r_{i}.png"),
+                      _ball_view(size, size, focal, c2w))
+            frames.append({"file_path": f"./{split}/r_{i}",
+                           "transform_matrix": c2w.tolist()})
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": BLENDER_ANGLE_X, "frames": frames}, f)
+
+
+def _pooled_psnr(trainer, loader) -> float:
+    """PSNR of the mean squared error over all of a loader's rays (the
+    pipeline's test PSNR is the mean of per-batch PSNRs, which batches of
+    background alone, at the 1e-10 floor, lift toward 100 dB)."""
+    se, n = 0.0, 0
+    with torch.no_grad():
+        for batch in loader:
+            rays_d, rays_o, viewdirs, target = trainer._batch(batch)
+            pred = trainer.field.render(
+                rays_o, rays_d, viewdirs, near=trainer.near, far=trainer.far,
+                bg=trainer.bg, n_samples=trainer.n_samples)["rgb_marched"]
+            se += float(((pred - target) ** 2).sum())
+            n += target.numel()
+    return -10.0 * math.log10(max(se / n, 1e-10))
+
+
+def phase_pretrain(guidance=None, coarse_iters: int = 300,
+                   fine_iters: int = 300, log_every: int = 25):
+    """DVGO pretraining at the published DVGO Blender widths (the port's
+    nerf_pipeline.DEFAULTS: coarse 1,024,000 voxels, k0 3; fine 160^3, k0
+    12, a 128 x 3 ResMLP, PE 5 / 4; stepsize 0.5; 8,192 rays a step) on
+    the ball scene written in the Blender layout and read back by
+    load_data, cut in depth: `coarse_iters` coarse iterations from 512,000
+    voxels with one pg_scale milestone to 1,024,000 (DVGO starts at
+    num_voxels / 2^len(pg_scale)), `fine_iters` fine. Then the .dvgo into
+    DVGOEditNetwork (sigma and albedo at 65,536 points equal the fine
+    field's, f32 atol 1e-6), 3 editing steps through the Trainer (SD
+    random-full: `guidance`) and one 800x800 ImageRenderer frame. The
+    fine stage is cut to 300 iterations, not the ~500 first planned: its
+    plain-PyTorch step takes ~0.48 s on the card, 92% of it in the index
+    backward of grid_sample_3d's gather (PERF.md, PR 11). Returns
+    (pretraining launch counts, editing launch counts)."""
+    import shutil
+
+    from dreamfusion_torch.config import parse_config
+    from dreamfusion_torch.datasets import load_data
+    from dreamfusion_torch.models.kailu import DVGOEditNetwork
+    from dreamfusion_torch.ops import cuda as kcuda
+    from dreamfusion_torch.training.dvgo_trainer import DVGOTrainer
+    from dreamfusion_torch.training.image_renderer import (ImageRenderer,
+                                                           load_dvgo_field)
+    from dreamfusion_torch.training.nerf_pipeline import (_loader,
+                                                          train_nerf_models)
+    from dreamfusion_torch.training.trainer import Trainer
+
+    dev = torch.device("cuda")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pretrain_")
+    try:
+        scene = os.path.join(tmp, "ball")
+        t0 = time.perf_counter()
+        write_ball_scene(scene)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        data = load_data({"dataset_type": "blender", "datadir": scene})
+        t_read = time.perf_counter() - t0
+        log(f"[pretrain] ball scene (radius {BALL_RADIUS}, normal-coloured) "
+            f"in the Blender layout: {len(data['i_train'])} train, "
+            f"{len(data['i_val'])} val, {len(data['i_test'])} test views of "
+            f"{data['HW'][0][0]}x{data['HW'][0][1]}, near {data['near']} far "
+            f"{data['far']}; written in {t_write:.1f} s, load_data "
+            f"(read_png) {t_read:.1f} s")
+
+        stamps = {"coarse": [], "fine": []}
+
+        def log_fn(msg):
+            for stage in stamps:
+                if msg.startswith(f"[{stage} "):
+                    it = int(msg.split()[1].rstrip("]"))
+                    stamps[stage].append((it, time.perf_counter()))
+                    if it % 100 and it != (coarse_iters if stage == "coarse"
+                                           else fine_iters) - 1:
+                        return
+            log(f"[pretrain] {msg[:240]}")
+
+        params = {"cfg_data": None, "data_dict": data, "batch_size": 8192,
+                  "coarse_model": {"num_voxels": 512000},
+                  "coarse_train": {"n_iters": coarse_iters,
+                                   "pg_scale": (coarse_iters // 2,)},
+                  "fine_train": {"n_iters": fine_iters},
+                  "save_name": os.path.join(tmp, "ball.dvgo"),
+                  "log_every": log_every}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kcuda.reset_counts()
+        t0 = time.perf_counter()
+        out = train_nerf_models(params, log_fn=log_fn, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(kcuda.launch_counts)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        tr_c, tr_f = out["coarse_trainer"], out["fine_trainer"]
+        rates = {}
+        for stage, st in stamps.items():
+            (i0, t_0), (i1, t_1) = st[1], st[-1]
+            rates[stage] = (i1 - i0) / (t_1 - t_0)
+        log(f"[pretrain] coarse world_size {tr_c.field.world_size} "
+            f"({math.prod(tr_c.field.world_size):,} voxels after the "
+            f"milestone at {coarse_iters // 2}), {tr_c.n_samples} samples a "
+            f"ray; fine world_size {tr_f.field.world_size} "
+            f"({math.prod(tr_f.field.world_size):,} voxels), box "
+            f"{tuple(round(v, 4) for v in tr_f.field.xyz_min)} ~ "
+            f"{tuple(round(v, 4) for v in tr_f.field.xyz_max)}, "
+            f"{tr_f.n_samples} samples a ray")
+        log(f"[pretrain] steps/s after warm-up (iterations {log_every}..end, "
+            f"synced at each log line every {log_every}): coarse "
+            f"{rates['coarse']:.4f}, fine {rates['fine']:.4f}; the whole "
+            f"pipeline {wall:.1f} s; peak device memory {peak:.2f} GiB")
+        log(f"[pretrain] kernels of the pretraining run {json.dumps(counts)}")
+        if any(counts.values()):
+            raise AssertionError("DVGO pretraining launched a hand-written "
+                                 f"kernel; its path has none: {counts}")
+
+        # the fine field before training: a trainer from the same seed and
+        # shape initialises it as the pipeline's did
+        test_dl = _loader(data, {}, "i_test", "random", 8192, cap=819200)
+        fresh = DVGOTrainer(type(tr_f.field)(
+            world_size=tr_f.field.world_size, k0_dim=12,
+            rgbnet_name="resmlp", xyz_min=tr_f.field.xyz_min,
+            xyz_max=tr_f.field.xyz_max, alpha_init=1e-2),
+            tr_f.stage, near=data["near"], far=data["far"], device=dev)
+        psnr0 = fresh.evaluate(test_dl)
+        psnr1 = out["test_psnr"]
+        pooled0, pooled1 = _pooled_psnr(fresh, test_dl), _pooled_psnr(
+            tr_f, test_dl)
+        log(f"[pretrain] test PSNR over {len(test_dl.dataset):,} rays (the "
+            f"pipeline's mean of {len(test_dl)} batch PSNRs): untrained fine "
+            f"field {psnr0:.3f} dB, trained {psnr1:.3f} dB (+"
+            f"{psnr1 - psnr0:.3f}); of the pooled squared error: "
+            f"{pooled0:.3f} -> {pooled1:.3f} dB (+{pooled1 - pooled0:.3f})")
+        if not (psnr1 >= psnr0 + 5.0 and pooled1 >= pooled0 + 5.0):
+            raise AssertionError("the trained fine field is not 5 dB above "
+                                 "the untrained one")
+        del fresh
+
+        # a fine step under the profiler: where its device time goes
+        batch = next(iter(_loader(data, {}, "i_train", "random", 8192)))
+        _profiled(lambda: tr_f.step(batch), 2, "fine step", ("dvgo/",))
+
+        # the .dvgo round trip
+        path = os.path.join(tmp, "again.dvgo")
+        t0 = time.perf_counter()
+        tr_f.save_dvgo(path)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        field = load_dvgo_field(path, dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        cfg = parse_config(["-O", "--backbone", "dvgo", "--pretrained_dvgo",
+                            path, "--bg_radius", "0", "--text",
+                            "a golden ball", "--sd_weights", "random-full",
+                            "--iters", "3", "--albedo_iters", "1",
+                            "--workspace", os.path.join(tmp, "ws"),
+                            "--ckpt", "scratch", "--seed", "0"])
+        edit = DVGOEditNetwork.from_config(cfg)
+        edit.load_pretrained()
+        edit = edit.to(dev)
+        ref = copy.deepcopy(edit)
+        ref.main.load_state_dict(tr_f.field.state_dict())
+        x = torch.rand(65536, 3, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(5)
+                       ) * 2 - 1
+        with torch.no_grad():
+            (s_a, a_a), (s_b, a_b) = edit.common(x), ref.common(x)
+        gap = max(float((s_a - s_b).abs().max()), float((a_a - a_b).abs().max()))
+        gap_f = max(float((getattr(field, k) - getattr(tr_f.field, k))
+                          .detach().abs().max()) for k in ("density", "k0"))
+        log(f"[pretrain] .dvgo ({os.path.getsize(path) / 2 ** 20:.0f} MiB) "
+            f"write {t_save * 1e3:.1f} ms, read into a field on the card "
+            f"{t_load * 1e3:.1f} ms; DVGOEditNetwork sigma and albedo at "
+            f"65,536 points vs the fine field: max abs {gap:.3e}, grids "
+            f"{gap_f:.3e}; {int((s_a > 1).sum())} points with sigma > 1")
+        if not (gap <= 1e-6 and gap_f <= 1e-6):
+            raise AssertionError("the .dvgo round trip changed the field")
+        del edit, ref
+
+        trainer = Trainer("pretrain_edit", cfg, guidance=guidance,
+                          use_checkpoint="scratch")
+        rate, ecounts, losses, _, epeak = _train_timed(trainer, 3, 1)
+        log(f"[pretrain] 3 editing steps of the trained scene (python -m "
+            f"dreamfusion_torch.main -O --backbone dvgo --pretrained_dvgo "
+            f"<it> --bg_radius 0 --sd_weights random-full): losses "
+            + " ".join(f"{float(v):.4g}" for v in losses)
+            + f"; {rate:.4f} steps/s after 1; peak {epeak:.2f} GiB; kernels "
+            f"{json.dumps(ecounts)}")
+        if not bool(torch.isfinite(losses).all()) or min(
+                ecounts[k] for k in EDIT_TRAIN_KERNELS) <= 0:
+            raise AssertionError(f"editing the trained scene: {ecounts}")
+        del trainer
+
+        # one 800x800 frame of the fine field through ImageRenderer, against
+        # the analytic scene at that size
+        size = 800
+        focal = 0.5 * size / math.tan(0.5 * BLENDER_ANGLE_X)
+        K = np.array([[focal, 0, size / 2], [0, focal, size / 2], [0, 0, 1]],
+                     np.float32)
+        pose = data["poses"][data["i_test"][0]]
+        r = ImageRenderer(tr_f.field, near=data["near"], far=data["far"],
+                          batch_size=8192)
+        f64 = focal * 64 / size
+        r.renderView(64, 64, np.array([[f64, 0, 32], [0, f64, 32], [0, 0, 1]],
+                                      np.float32), pose)       # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = r.renderView(size, size, K, pose)
+        t_frame = time.perf_counter() - t0
+        gt = _ball_view(size, size, focal, pose).astype(np.float64) / 255
+        gt = gt[..., :3] * gt[..., 3:] + (1 - gt[..., 3:])
+        frame_psnr = -10 * math.log10(float(((img - gt) ** 2).mean()))
+        log(f"[pretrain] ImageRenderer {size}x{size} frame of test view 0: "
+            f"{t_frame * 1e3:.1f} ms ({size * size // 8192 + 1} chunks of "
+            f"8,192 rays), PSNR {frame_psnr:.3f} dB against the analytic "
+            f"scene")
+        if img.shape != (size, size, 3) or not np.isfinite(img).all():
+            raise AssertionError("the 800x800 frame is not finite")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts, ecounts
+
+
+def synthetic_bpe(corpus: str, n_merges: int = 300, drop=(),
+                  specials_first: bool = False):
+    """A small CLIP vocabulary: the 512 byte symbols (with and without
+    </w>), the first `n_merges` merges a greedy BPE learns on `corpus`, and
+    the two special tokens (last, or at ids 3 and 4); the `drop` symbols
+    are left out, so that they map to the unknown token. Returns (vocab
+    dict, merges.txt lines). The CPU tests build their vocabularies here
+    too."""
+    from collections import Counter
+
+    from dreamfusion_torch.guidance.tokenizer import bytes_to_unicode
+
+    be = bytes_to_unicode()
+    symbols = list(be.values()) + [c + "</w>" for c in be.values()]
+    words = Counter()
+    for w in corpus.lower().split():
+        sym = "".join(be[b] for b in w.encode())
+        words[tuple(sym[:-1]) + (sym[-1] + "</w>",)] += 1
+    merges = []
+    for _ in range(n_merges):
+        pairs = Counter()
+        for w, c in words.items():
+            for a, b in zip(w[:-1], w[1:]):
+                pairs[(a, b)] += c
+        if not pairs:
+            break
+        best = max(sorted(pairs), key=lambda p: pairs[p])
+        merges.append(best)
+        merged = Counter()
+        for w, c in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if i < len(w) - 1 and (w[i], w[i + 1]) == best:
+                    out.append(w[i] + w[i + 1])
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            merged[tuple(out)] += c
+        words = merged
+        symbols.append(best[0] + best[1])
+    symbols = [s for s in dict.fromkeys(symbols) if s not in drop]
+    specials = ["<|startoftext|>", "<|endoftext|>"]
+    symbols = (symbols[:3] + specials + symbols[3:] if specials_first
+               else symbols + specials)
+    return ({s: i for i, s in enumerate(symbols)},
+            ["#version: 0.2"] + [f"{a} {b}" for a, b in merges])
+
+
+# SD v1.5's text encoder (CLIP ViT-L/14's text tower, text_encoder/config.json)
+SD15_TEXT = dict(vocab_size=49408, hidden_size=768, intermediate_size=3072,
+                 num_hidden_layers=12, num_attention_heads=12,
+                 max_position_embeddings=77, hidden_act="quick_gelu",
+                 layer_norm_eps=1e-5, bos_token_id=0, eos_token_id=2,
+                 pad_token_id=1, projection_dim=768,
+                 architectures=["CLIPTextModel"], model_type="clip_text_model",
+                 torch_dtype="float16")
+SD_PROMPTS = ["a DSLR photo of a corgi wearing a beret", "a hamburger"]
+
+
+def write_sd_dir(root: str, seed: int = 1):
+    """A diffusers-layout SD directory at SD v1.5 widths from a seed: the
+    random-full UNet and VAE (flax's init on the card, bf16 as the trainer
+    holds them, rounded through float16) under diffusers names in float16
+    safetensors, as the published fp16 variant stores them; a random text
+    encoder at ViT-L/14's text widths (float16, config.json); a synthetic
+    BPE tokenizer. Returns (the source guidance, {module: the written
+    float16 arrays by port key})."""
+    from dreamfusion_torch.guidance.clip import CLIPTextTransformer
+    from dreamfusion_torch.guidance.sd.convert import (diffusers_names,
+                                                       write_safetensors)
+    from dreamfusion_torch.guidance.sd.sds import build_sd_guidance
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    src = build_sd_guidance("random-full", dtype=torch.bfloat16, device=dev,
+                            generator=gen)
+    written = {}
+    for name in ("unet", "vae"):
+        m = src.modules[name]
+        with torch.no_grad():
+            for p in m.parameters():
+                p.copy_(p.half().to(p.dtype))
+        sd = {k: v.detach().half().cpu().numpy()
+              for k, v in m.state_dict().items()}
+        written[name] = sd
+        os.makedirs(os.path.join(root, name))
+        write_safetensors(os.path.join(root, name,
+                                       "diffusion_pytorch_model.safetensors"),
+                          diffusers_names(sd))
+    text = CLIPTextTransformer(SD15_TEXT)
+    tg = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for k, p in text.named_parameters():
+            if "norm" in k:
+                p.copy_(1.0 + 0.02 * torch.randn(p.shape, generator=tg)
+                        if k.endswith("weight") else
+                        0.02 * torch.randn(p.shape, generator=tg))
+            else:
+                p.normal_(0.0, 0.02, generator=tg)
+    te = {("text_model." + k).replace("_embedding.embedding",
+                                      "_embedding.weight"):
+          v.half().numpy() for k, v in text.state_dict().items()}
+    written["text_encoder"] = te
+    os.makedirs(os.path.join(root, "text_encoder"))
+    write_safetensors(os.path.join(root, "text_encoder", "model.safetensors"),
+                      te)
+    with open(os.path.join(root, "text_encoder", "config.json"), "w") as f:
+        json.dump(SD15_TEXT, f)
+    vocab, merges = synthetic_bpe(" ".join(SD_PROMPTS * 3)
+                                   + " a photo of the red cube, 42 times")
+    os.makedirs(os.path.join(root, "tokenizer"))
+    with open(os.path.join(root, "tokenizer", "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(root, "tokenizer", "merges.txt"), "w") as f:
+        f.write("\n".join(merges) + "\n")
+    return src, written
+
+
+def phase_sd_dir(steps: int = 5):
+    """A whole SD directory at SD v1.5 widths through the probe: written
+    in a temporary directory (write_sd_dir), found by build_guidance with
+    sd_weights None through $SD_WEIGHTS_DIR (set for this phase only),
+    loaded; every loaded tensor equal to what was written after the
+    compute dtype's cast, the ids and text embeddings of two prompts equal
+    to the port's CPU path (f32, rtol 1e-5), one UNet eps equal to the
+    source module's on a fixed input; then `steps` SDS steps of -O on it.
+    Returns the SDS steps' launch counts."""
+    import shutil
+
+    from dreamfusion_torch.config import parse_config
+    from dreamfusion_torch.guidance import build_guidance
+    from dreamfusion_torch.guidance.clip import CLIPTextTransformer
+    from dreamfusion_torch.guidance.sd.convert import load_module_dir
+    from dreamfusion_torch.guidance.sd.probe import find_sd_weights
+    from dreamfusion_torch.guidance.tokenizer import CLIPBPETokenizer
+    from dreamfusion_torch.ops import cuda as kcuda
+    from dreamfusion_torch.training.trainer import Trainer
+    from dreamfusion_torch.weights import load_hf_clip
+
+    dev = torch.device("cuda")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sd_dir_")
+    root = os.path.join(tmp, "stable-diffusion-v1-5")
+    old_env = os.environ.get("SD_WEIGHTS_DIR")
+    try:
+        t0 = time.perf_counter()
+        src, written = write_sd_dir(root)
+        t_write = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(root) for f in fs)
+        log(f"[sd_dir] wrote {root}: unet/, vae/ (float16 safetensors, "
+            f"diffusers names), text_encoder/ (12 x 768, float16), "
+            f"tokenizer/ ({len(json.load(open(os.path.join(root, 'tokenizer', 'vocab.json')))):,} "
+            f"tokens); {size / 2 ** 30:.3f} GiB in {t_write:.1f} s")
+        os.environ["SD_WEIGHTS_DIR"] = root
+        cfg = parse_config(["-O", "--text", "a DSLR photo of a corgi",
+                            "--iters", str(steps), "--albedo_iters",
+                            str(steps // 2), "--workspace",
+                            os.path.join(tmp, "ws"), "--ckpt", "scratch",
+                            "--seed", "0"])
+        assert cfg.sd_weights is None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = build_guidance(cfg, dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        picked = find_sd_weights(verbose=False)
+        log(f"[sd_dir] build_guidance(sd_weights=None): the probe picked "
+            f"{picked}; loaded in {t_load:.1f} s")
+        if picked != root or g.modules.get("text_encode") is None:
+            raise AssertionError("the probe did not pick the SD directory")
+
+        # every tensor as written, after the compute dtype's cast
+        worst = 0
+        for name in ("unet", "vae"):
+            for k, v in g.modules[name].state_dict().items():
+                want = torch.from_numpy(written[name][k]).to(dev, v.dtype)
+                if not torch.equal(v, want):
+                    raise AssertionError(f"{name}.{k} differs from the file")
+                worst += 1
+        text_model = g.modules["text_encode"].text_model
+        for k, v in text_model.state_dict().items():
+            hf = ("text_model." + k).replace("_embedding.embedding",
+                                              "_embedding.weight")
+            want = torch.from_numpy(written["text_encoder"][hf]).to(dev,
+                                                                   v.dtype)
+            if not torch.equal(v, want):
+                raise AssertionError(f"text_encoder {k} differs from the file")
+            worst += 1
+        log(f"[sd_dir] {worst} loaded tensors equal the written float16 "
+            f"values cast to their compute dtype (UNet and VAE "
+            f"{next(g.modules['unet'].parameters()).dtype}, norms float32, "
+            f"text encoder float32)")
+
+        # ids and embeddings against the CPU path
+        tok = CLIPBPETokenizer.from_dir(os.path.join(root, "tokenizer"))
+        cpu_text = CLIPTextTransformer(json.load(open(os.path.join(
+            root, "text_encoder", "config.json"))))
+        load_hf_clip(cpu_text, load_module_dir(os.path.join(root,
+                                                            "text_encoder")),
+                     prefix="text_model.")
+        ids = tok(SD_PROMPTS)
+        with torch.no_grad():
+            ref = cpu_text.last_hidden_state(torch.from_numpy(ids))
+        g.modules["text_encode"](SD_PROMPTS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        emb = g.modules["text_encode"](SD_PROMPTS)
+        torch.cuda.synchronize()
+        t_text = (time.perf_counter() - t0) * 1e3
+        ids_gpu = g.modules["text_encode"].tokenizer(SD_PROMPTS)
+        rel = rel_err(emb.float().cpu(), ref)
+        log(f"[sd_dir] ids of {len(SD_PROMPTS)} prompts equal the CPU "
+            f"tokenizer's: {bool(np.array_equal(ids_gpu, ids))} (first "
+            f"{ids[0][:10].tolist()}); text embeddings {tuple(emb.shape)} vs "
+            f"the CPU path: rel {rel:.3e}; text encode {t_text:.2f} ms for "
+            f"{len(SD_PROMPTS)} prompts")
+        if not np.array_equal(ids_gpu, ids) or not rel <= 1e-5:
+            raise AssertionError("text ids or embeddings differ from the CPU")
+
+        # one UNet eps against the source module
+        gen = torch.Generator(device=dev).manual_seed(3)
+        lat = torch.randn(2, 64, 64, 4, device=dev, generator=gen)
+        t = torch.tensor([100, 700], device=dev)
+        ctx = emb.float()
+        with torch.no_grad():
+            e_src = src.modules["unet"](lat, t, ctx)
+            e_dir = g.modules["unet"](lat, t, ctx)
+        eps_rel = rel_err(e_dir.float(), e_src.float())
+        log(f"[sd_dir] UNet eps on a fixed input (B=2, 64x64 latents, the "
+            f"prompts' embeddings): loaded vs source module rel {eps_rel:.3e}"
+            f", bitwise equal {bool(torch.equal(e_src, e_dir))}")
+        if not eps_rel <= 1e-3:
+            raise AssertionError("the loaded UNet differs from its source")
+        del src
+
+        trainer = Trainer("sd_dir", cfg, guidance=g, use_checkpoint="scratch")
+        rate, counts, losses, _, peak = _train_timed(trainer, steps, 1)
+        log(f"[sd_dir] {steps} SDS steps of -O on the loaded directory: "
+            f"losses " + " ".join(f"{float(v):.4g}" for v in losses)
+            + f"; {rate:.4f} steps/s after 1; peak {peak:.2f} GiB; kernels "
+            f"{json.dumps(counts)}")
+        if not bool(torch.isfinite(losses).all()) or min(
+                counts[k] for k in TRAIN_KERNELS) <= 0:
+            raise AssertionError(f"SDS on the loaded directory: {counts}")
+    finally:
+        if old_env is None:
+            os.environ.pop("SD_WEIGHTS_DIR", None)
+        else:
+            os.environ["SD_WEIGHTS_DIR"] = old_env
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[sd_dir] directory deleted: {not os.path.exists(root)}")
+    return counts
+
+
 def phase_kernels(trainer, counts, captured=None, o2_trainer=None,
                   opt_trainer=None):
     """Every kernel against its plain version; returns the entries of the
@@ -2819,7 +3408,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phases",
                    default="build,small,train,eval,hashgrid,edit,o2,options,"
-                           "dp,txt2img,export,gui,kernels")
+                           "dp,txt2img,export,gui,pretrain,sd_dir,kernels")
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--warmup", type=int, default=4)
     args = p.parse_args(argv)
@@ -2870,11 +3459,13 @@ def main(argv=None) -> int:
     if "dp" in phases:
         counts["dp"] = phase_dp()
     guidance = trainer.guidance if trainer is not None else None
-    if guidance is None and {"txt2img", "export", "gui"} & set(phases):
+    if guidance is None and {"txt2img", "export", "gui",
+                             "pretrain"} & set(phases):
         from dreamfusion_torch.guidance.sd.sds import build_sd_guidance
 
-        # one SD random-full (bf16) for the slice-10 phases, as the train
-        # phase's trainer would hold
+        # one SD random-full (bf16) for the slice-10 phases and the
+        # pretrain phase's editing steps, as the train phase's trainer
+        # would hold
         guidance = build_sd_guidance(
             "random-full", dtype=torch.bfloat16, device=torch.device("cuda"),
             generator=torch.Generator(device="cuda").manual_seed(0))
@@ -2885,6 +3476,10 @@ def main(argv=None) -> int:
                                         else export_trainer(guidance))
     if "gui" in phases:
         counts["gui"] = phase_gui(guidance)
+    if "pretrain" in phases:
+        counts["pretrain"], counts["pretrain_edit"] = phase_pretrain(guidance)
+    if "sd_dir" in phases:
+        counts["sd_dir"] = phase_sd_dir()
     entries = (phase_kernels(trainer, counts, captured, o2_trainer,
                              opt_trainer)
                if "kernels" in phases else [])

@@ -107,7 +107,7 @@ class Config:
 
     # -- guidance -------------------------------------------------------------
     guidance_scale: float = 100.0
-    sd_weights: Optional[str] = None    # random-full | random-tiny | random-nano
+    sd_weights: Optional[str] = None    # SD dir | random-full/-tiny/-nano
     clip_weights: Optional[str] = None  # random-tiny (the one buildable)
 
     # -- optimizer --------------------------------------------------------------

@@ -21,6 +21,8 @@ class Guidance(NamedTuple):
     modules: Any                 # frozen torch modules (or {})
     get_text_embeds: Callable    # (prompts, negatives) -> text_z
     loss: Callable               # (text_z, pred_rgb, draws=None, gen=None) -> scalar
+    encode_images: Any = None    # optional: ([B,H,W,3]) -> features
+                                 # (the CLIP-R-precision metric reads it)
 
 
 def none_guidance(device: Optional[torch.device] = None) -> Guidance:
@@ -36,16 +38,23 @@ def none_guidance(device: Optional[torch.device] = None) -> Guidance:
 
 def build_guidance(cfg, device: torch.device,
                    generator: Optional[torch.Generator] = None) -> Guidance:
-    """Dispatch like main.py:134-141: stable-diffusion or CLIP on random
-    weights, or none."""
+    """Dispatch like main.py:134-141 and the JAX package's build_guidance:
+    stable-diffusion, CLIP or none. For sd_weights None or random-full the
+    probe (guidance/sd/probe.py) looks for a mounted SD directory first and
+    loads it when found; otherwise None builds random-tiny and random-full
+    the SD-v1.5-sized random models."""
     if cfg.guidance == "none" or cfg.text is None:
         return none_guidance(device)
     if cfg.guidance == "stable-diffusion":
         from dreamfusion_torch.guidance.sd.sds import build_sd_guidance
 
+        sd_w = cfg.sd_weights
+        if sd_w in (None, "random-full"):
+            from dreamfusion_torch.guidance.sd.probe import find_sd_weights
+
+            sd_w = find_sd_weights() or sd_w
         return build_sd_guidance(
-            cfg.sd_weights or "random-full",
-            guidance_scale=cfg.guidance_scale,
+            sd_w, guidance_scale=cfg.guidance_scale,
             dtype=torch.bfloat16 if cfg.fp16 else torch.float32,
             device=device, generator=generator)
     if cfg.guidance == "clip":

@@ -5,28 +5,38 @@ The loss is -mean(cos(image_features, text_features)) of the rendered frame
 resized to 224 and CLIP-normalized; the negative prompt is ignored, as in
 the reference (nerf/clip.py:28).
 
-The model is the port's own small CLIP in PyTorch, written after
-transformers' FlaxCLIPModel (modeling_flax_clip.py), whose parameter
-names it carries, so weights.from_jax_params converts a Flax CLIP tree:
+The model is the port's own CLIP in PyTorch, written after transformers'
+FlaxCLIPModel (modeling_flax_clip.py), whose parameter names it carries,
+so weights.from_jax_params converts a Flax CLIP tree and
+weights.from_hf_clip a transformers state dict:
 - text tower: token and position embeddings, pre-LN blocks under a causal
-  mask, a final LayerNorm, pooling at the first end-of-text token, a
-  bias-free projection;
+  mask, a final LayerNorm, pooling at the end-of-text token, a bias-free
+  projection;
 - vision tower: a bias-free patch convolution, the class embedding,
   position embeddings, ``pre_layrnorm``, the blocks, ``post_layernorm`` on
   the class token and a bias-free projection.
-Blocks use quick_gelu and LayerNorm epsilon 1e-5 (CLIPConfig's defaults).
+Each tower reads its config's ``hidden_act`` (quick_gelu or gelu) and
+``layer_norm_eps``; the text tower pools at the first ``eos_token_id``, or,
+for a config whose eos_token_id is 2 (the openai configs' value), at
+``ids.argmax(-1)``, as Flax does (modeling_flax_clip.py:554-565). The
+defaults are CLIPConfig's.
 
-Only ``random-tiny`` (the JAX package's _TINY_TEXT / _TINY_VISION sizes,
-projection 16) can be built: no CLIP checkpoint or tokenizer vocabulary
-is in the repository, so a prompt is tokenized by ``_fallback_tokenize``.
-The CLIP forward runs no hand-written kernel: in the JAX package it
+``build_clip_guidance`` builds ``random-tiny`` (the JAX package's
+_TINY_TEXT / _TINY_VISION sizes, projection 16) or loads a local CLIP
+directory (``config.json`` with text_config, vision_config and
+projection_dim; ``model.safetensors`` or ``pytorch_model.bin``). A prompt is
+tokenized by the directory's BPE vocabulary (guidance/tokenizer.py) where
+one loads, and otherwise by ``_fallback_tokenize``, as the JAX package
+does. The CLIP forward runs no hand-written kernel: in the JAX package it
 reaches no Pallas kernel either.
 """
 
 from __future__ import annotations
 
 import hashlib
+import json
 import math
+import os
 from typing import Optional
 
 import numpy as np
@@ -47,7 +57,16 @@ _TINY_TEXT = dict(hidden_size=32, intermediate_size=64, num_hidden_layers=2,
 _TINY_VISION = dict(hidden_size=32, intermediate_size=64, num_hidden_layers=2,
                     num_attention_heads=2, image_size=224, patch_size=32)
 _TINY_PROJECTION = 16
-_LN_EPS = 1e-5
+# CLIPTextConfig's / CLIPVisionConfig's defaults for what a config omits
+_TEXT_DEFAULTS = dict(vocab_size=49408, hidden_size=512,
+                      intermediate_size=2048, num_hidden_layers=12,
+                      num_attention_heads=8, max_position_embeddings=77,
+                      hidden_act="quick_gelu", layer_norm_eps=1e-5,
+                      eos_token_id=_EOS)
+_VISION_DEFAULTS = dict(hidden_size=768, intermediate_size=3072,
+                        num_hidden_layers=12, num_attention_heads=12,
+                        image_size=224, patch_size=32,
+                        hidden_act="quick_gelu", layer_norm_eps=1e-5)
 
 
 def clip_preprocess(pred_rgb: torch.Tensor, image_size: int = 224
@@ -83,6 +102,19 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
+# transformers' ACT2FN entries a CLIP config may name (Flax's "gelu" is
+# the exact erf form)
+_ACTIVATIONS = {"quick_gelu": quick_gelu, "gelu": F.gelu}
+
+
+def _activation(name: str):
+    if name not in _ACTIVATIONS:
+        raise NotImplementedError(
+            f"CLIP hidden_act {name!r}: the port takes "
+            f"{', '.join(_ACTIVATIONS)}")
+    return _ACTIVATIONS[name]
+
+
 class CLIPAttention(nn.Module):
     def __init__(self, hidden: int, heads: int, causal: bool):
         super().__init__()
@@ -104,23 +136,25 @@ class CLIPAttention(nn.Module):
 
 
 class CLIPMLP(nn.Module):
-    def __init__(self, hidden: int, intermediate: int):
+    def __init__(self, hidden: int, intermediate: int,
+                 act: str = "quick_gelu"):
         super().__init__()
         self.fc1 = nn.Linear(hidden, intermediate)
         self.fc2 = nn.Linear(intermediate, hidden)
+        self.act = _activation(act)
 
     def forward(self, x):
-        return self.fc2(quick_gelu(self.fc1(x)))
+        return self.fc2(self.act(self.fc1(x)))
 
 
 class CLIPEncoderLayer(nn.Module):
     def __init__(self, hidden: int, intermediate: int, heads: int,
-                 causal: bool):
+                 causal: bool, act: str = "quick_gelu", eps: float = 1e-5):
         super().__init__()
         self.self_attn = CLIPAttention(hidden, heads, causal)
-        self.layer_norm1 = nn.LayerNorm(hidden, eps=_LN_EPS)
-        self.mlp = CLIPMLP(hidden, intermediate)
-        self.layer_norm2 = nn.LayerNorm(hidden, eps=_LN_EPS)
+        self.layer_norm1 = nn.LayerNorm(hidden, eps=eps)
+        self.mlp = CLIPMLP(hidden, intermediate, act)
+        self.layer_norm2 = nn.LayerNorm(hidden, eps=eps)
 
     def forward(self, x):
         x = x + self.self_attn(self.layer_norm1(x))
@@ -132,7 +166,8 @@ class CLIPEncoder(nn.Module):
         super().__init__()
         self.layers = nn.ModuleList(
             CLIPEncoderLayer(cfg["hidden_size"], cfg["intermediate_size"],
-                             cfg["num_attention_heads"], causal)
+                             cfg["num_attention_heads"], causal,
+                             cfg["hidden_act"], cfg["layer_norm_eps"])
             for _ in range(cfg["num_hidden_layers"]))
 
     def forward(self, x):
@@ -165,18 +200,42 @@ class CLIPTextEmbeddings(nn.Module):
         return self.token_embedding(ids) + self.position_embedding(pos)[None]
 
 
+def text_config(cfg: Optional[dict] = None) -> dict:
+    """A text tower's config: `cfg` over CLIPTextConfig's defaults."""
+    return {**_TEXT_DEFAULTS, **(cfg or {})}
+
+
+def vision_config(cfg: Optional[dict] = None) -> dict:
+    """A vision tower's config: `cfg` over CLIPVisionConfig's defaults."""
+    return {**_VISION_DEFAULTS, **(cfg or {})}
+
+
 class CLIPTextTransformer(nn.Module):
+    """The text tower (FlaxCLIPTextTransformer); also SD's text encoder,
+    whose output is ``last_hidden_state``."""
+
     def __init__(self, cfg: dict):
         super().__init__()
+        cfg = text_config(cfg)
+        self.eos_token_id = int(cfg["eos_token_id"])
         self.embeddings = CLIPTextEmbeddings(cfg)
         self.encoder = CLIPEncoder(cfg, causal=True)
-        self.final_layer_norm = nn.LayerNorm(cfg["hidden_size"], eps=_LN_EPS)
+        self.final_layer_norm = nn.LayerNorm(cfg["hidden_size"],
+                                             eps=cfg["layer_norm_eps"])
+
+    def last_hidden_state(self, ids: torch.Tensor) -> torch.Tensor:
+        """[B, S] ids -> [B, S, D] after final_layer_norm
+        (FlaxCLIPTextModel(...)[0])."""
+        return self.final_layer_norm(self.encoder(self.embeddings(ids)))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        h = self.final_layer_norm(self.encoder(self.embeddings(ids)))
-        # the first end-of-text token (modeling_flax_clip.py, eos_token_id
-        # 49407; with the fallback tokenizer it is also ids.argmax(-1))
-        eos = (ids == _EOS).int().argmax(-1)
+        """The pooled output: the hidden state at the first end-of-text
+        token, or at ids.argmax(-1) under the legacy eos_token_id 2."""
+        h = self.last_hidden_state(ids)
+        if self.eos_token_id == 2:
+            eos = ids.argmax(-1)
+        else:
+            eos = (ids == self.eos_token_id).int().argmax(-1)
         return h[torch.arange(h.shape[0], device=h.device), eos]
 
 
@@ -198,10 +257,13 @@ class CLIPVisionEmbeddings(nn.Module):
 class CLIPVisionTransformer(nn.Module):
     def __init__(self, cfg: dict):
         super().__init__()
+        cfg = vision_config(cfg)
         self.embeddings = CLIPVisionEmbeddings(cfg)
-        self.pre_layrnorm = nn.LayerNorm(cfg["hidden_size"], eps=_LN_EPS)
+        self.pre_layrnorm = nn.LayerNorm(cfg["hidden_size"],
+                                         eps=cfg["layer_norm_eps"])
         self.encoder = CLIPEncoder(cfg, causal=False)
-        self.post_layernorm = nn.LayerNorm(cfg["hidden_size"], eps=_LN_EPS)
+        self.post_layernorm = nn.LayerNorm(cfg["hidden_size"],
+                                           eps=cfg["layer_norm_eps"])
 
     def forward(self, pixel_values):
         h = self.encoder(self.pre_layrnorm(self.embeddings(pixel_values)))
@@ -213,6 +275,7 @@ class CLIPModel(nn.Module):
 
     def __init__(self, text_cfg: dict, vision_cfg: dict, projection_dim: int):
         super().__init__()
+        text_cfg, vision_cfg = text_config(text_cfg), vision_config(vision_cfg)
         self.text_cfg, self.vision_cfg = text_cfg, vision_cfg
         self.text_model = CLIPTextTransformer(text_cfg)
         self.vision_model = CLIPVisionTransformer(vision_cfg)
@@ -255,19 +318,24 @@ def tiny_clip() -> CLIPModel:
     return CLIPModel(_TINY_TEXT, _TINY_VISION, _TINY_PROJECTION)
 
 
-def clip_guidance(model: CLIPModel, image_size: int = 224) -> Guidance:
-    """Guidance over a built CLIP model (frozen here)."""
+def clip_guidance(model: CLIPModel, image_size: int = 224,
+                  tokenizer=None) -> Guidance:
+    """Guidance over a built CLIP model (frozen here). tokenizer: a
+    guidance/tokenizer.CLIPBPETokenizer, or None for _fallback_tokenize."""
     model.requires_grad_(False)
     vocab = model.text_cfg["vocab_size"]
 
     def get_text_embeds(prompts, negatives):
-        ids = torch.from_numpy(_fallback_tokenize(list(prompts), vocab)).long()
+        # negatives ignored (reference: nerf/clip.py:28)
+        ids = (tokenizer(list(prompts)) if tokenizer is not None
+               else _fallback_tokenize(list(prompts), vocab))
         dev = next(model.parameters()).device
         with torch.no_grad():
-            z = model.get_text_features(ids.to(dev))
+            z = model.get_text_features(torch.from_numpy(ids).long().to(dev))
         return z / z.norm(dim=-1, keepdim=True)
 
     def encode_images(pred_rgb):
+        """[B, H, W, 3] in [0, 1] -> unit image features [B, P]."""
         z = model.get_image_features(clip_preprocess(pred_rgb, image_size))
         return z / z.norm(dim=-1, keepdim=True)
 
@@ -277,21 +345,47 @@ def clip_guidance(model: CLIPModel, image_size: int = 224) -> Guidance:
         return -(encode_images(pred_rgb) * text_z).sum(-1).mean()
 
     return Guidance(name="clip", modules={"clip": model},
-                    get_text_embeds=get_text_embeds, loss=loss)
+                    get_text_embeds=get_text_embeds, loss=loss,
+                    encode_images=encode_images)
+
+
+def load_clip_dir(path: str, device: Optional[torch.device] = None
+                  ) -> CLIPModel:
+    """A local CLIP directory (transformers' CLIPModel.save_pretrained
+    layout) -> the port's CLIPModel in f32 on `device`; raises on a
+    missing, extra or mis-shaped tensor."""
+    from dreamfusion_torch.guidance.sd.convert import load_module_dir
+    from dreamfusion_torch.weights import load_hf_clip
+
+    with open(os.path.join(path, "config.json")) as f:
+        cfg = json.load(f)
+    model = CLIPModel(cfg.get("text_config") or {},
+                      cfg.get("vision_config") or {},
+                      int(cfg.get("projection_dim", 512)))
+    load_hf_clip(model, load_module_dir(path))
+    return model.to(resolve_device(device)).eval()
 
 
 def build_clip_guidance(weights: Optional[str] = None,
                         device: Optional[torch.device] = None,
                         generator: Optional[torch.Generator] = None
                         ) -> Guidance:
-    """random-tiny (or None): the tiny CLIP, initialised from `generator`.
-    A checkpoint path or hub name raises: no CLIP weights or tokenizer
-    vocabulary are in the repository."""
-    if weights not in (None, "random-tiny"):
+    """random-tiny (or None): the tiny CLIP, initialised from `generator`;
+    a local CLIP directory: its weights, and its BPE tokenizer where
+    vocab.json and merges.txt are there. Any other name raises: a hub name
+    would need the network."""
+    from dreamfusion_torch.guidance.tokenizer import CLIPBPETokenizer
+
+    if weights in (None, "random-tiny"):
+        model = tiny_clip().to(resolve_device(device))
+        model.reset_parameters(generator)
+        return clip_guidance(model.eval())
+    if not os.path.isdir(weights):
         raise NotImplementedError(
-            f"clip_weights {weights!r}: the port builds only random-tiny; "
-            "loading CLIP ViT-B/16 weights and its BPE vocabulary waits "
-            "until those files are in the repository")
-    model = tiny_clip().to(resolve_device(device))
-    model.reset_parameters(generator)
-    return clip_guidance(model.eval())
+            f"clip_weights {weights!r} is not a local CLIP directory: the "
+            "port builds random-tiny or loads a directory; a hub name "
+            "would need the network")
+    has_bpe = all(os.path.isfile(os.path.join(weights, f))
+                  for f in ("vocab.json", "merges.txt"))
+    tokenizer = CLIPBPETokenizer.from_dir(weights) if has_bpe else None
+    return clip_guidance(load_clip_dir(weights, device), tokenizer=tokenizer)

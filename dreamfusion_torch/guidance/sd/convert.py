@@ -12,6 +12,11 @@ attention ``query`` / ``key`` / ``value`` / ``proj_attn`` and store it as
     sd = load_module_dir("<sd dir>/unet")      # name -> numpy array
     unet.load_state_dict(convert_state_dict(sd, unet.state_dict()))
 
+``diffusers_names`` maps the port's keys back (``down_blocks_0_resnets_1.``
+-> ``down_blocks.0.resnets.1.``), and ``write_safetensors`` writes a
+``.safetensors`` file, so a directory can be written from the port's
+modules without the safetensors package.
+
 ``convert_state_dict`` raises, naming the keys, on a parameter of the
 module that the file lacks, a tensor of the file that matches no
 parameter, and a shape that differs. ``.safetensors`` files are read by
@@ -19,9 +24,13 @@ the small reader here (the format is an 8-byte little-endian header
 length, a JSON header, then raw little-endian tensor data); ``.bin`` files
 by ``torch.load(weights_only=True)``.
 
-A whole diffusers SD directory also holds the CLIP text encoder and its
-BPE tokenizer, which the port does not have; ``build_sd_guidance`` refuses
-a directory for that reason.
+``load_sd_dir(sd_dir, unet, vae)`` loads a whole diffusers SD directory,
+as the JAX package's ``load_sd_params`` does: ``unet/`` and ``vae/`` as
+above, the CLIP text encoder of ``text_encoder/`` (its config.json and
+weights, through weights.load_hf_clip onto guidance/clip.
+CLIPTextTransformer) and the BPE tokenizer of ``tokenizer/``
+(guidance/tokenizer.py). It returns the modules and ``text_encode(prompts)
+-> [n, 77, D]``, the last hidden state after the final LayerNorm.
 """
 
 from __future__ import annotations
@@ -30,7 +39,7 @@ import json
 import os
 import re
 import struct
-from typing import Dict, Mapping
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -128,9 +137,49 @@ def read_safetensors(path: str) -> Dict[str, np.ndarray]:
     return out
 
 
+def write_safetensors(path: str, tensors: Mapping[str, np.ndarray]) -> None:
+    """{name: numpy array} -> a .safetensors file: the u64 little-endian
+    header length, the JSON header (dtype, shape, data_offsets), then the
+    raw little-endian bytes in the header's order."""
+    names = {np.dtype(v).str: k for k, v in _ST_DTYPES.items()
+             if k != "BF16"}
+    header, off = {"__metadata__": {"format": "pt"}}, 0
+    arrays = {}
+    for name, v in tensors.items():
+        arr = np.ascontiguousarray(v, v.dtype.newbyteorder("<"))
+        if arr.dtype.str not in names:
+            raise ValueError(f"tensor {name}: dtype {arr.dtype} has no "
+                             "safetensors name here")
+        header[name] = {"dtype": names[arr.dtype.str],
+                        "shape": list(arr.shape),
+                        "data_offsets": [off, off + arr.nbytes]}
+        arrays[name] = arr
+        off += arr.nbytes
+    blob = json.dumps(header).encode()
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)) + blob)
+        for arr in arrays.values():
+            f.write(arr.tobytes())
+
+
+def diffusers_names(state_dict: Mapping[str, object]) -> Dict[str, object]:
+    """The port's UNet / VAE keys -> diffusers' names (the values kept):
+    ``_N_`` and a trailing ``_N`` nest with dots, as does ``mid_block_``;
+    ``time_embedding.linear_N`` keeps its underscore."""
+    out = {}
+    for key, v in state_dict.items():
+        name = re.sub(r"_(\d+)_", r".\1.", key)
+        name = re.sub(r"_(\d+)(?=\.|$)", r".\1", name)
+        name = re.sub(r"time_embedding\.linear\.(\d)", r"time_embedding.linear_\1",
+                      name)
+        out[name.replace("mid_block_", "mid_block.")] = v
+    return out
+
+
 def load_module_dir(path: str) -> Dict[str, np.ndarray]:
-    """A diffusers-format module directory (``unet/``, ``vae/``) -> its
-    state dict as numpy arrays."""
+    """A diffusers or transformers module directory (``unet/``, ``vae/``,
+    ``text_encoder/``, a CLIP directory) -> its state dict as numpy
+    arrays."""
     for fname in ("diffusion_pytorch_model.safetensors", "model.safetensors"):
         f = os.path.join(path, fname)
         if os.path.exists(f):
@@ -141,3 +190,53 @@ def load_module_dir(path: str) -> Dict[str, np.ndarray]:
             sd = torch.load(f, map_location="cpu", weights_only=True)
             return {k: v.float().numpy() for k, v in sd.items()}
     raise FileNotFoundError(f"no model weights found under {path}")
+
+
+SD_DIR_PARTS = ("unet", "vae", "text_encoder", "tokenizer")
+
+
+def check_sd_dir(sd_dir: str) -> None:
+    """Raise FileNotFoundError, naming what is missing, unless sd_dir holds
+    the four parts load_sd_dir reads."""
+    missing = [p for p in SD_DIR_PARTS
+               if not os.path.isdir(os.path.join(sd_dir, p))]
+    if missing:
+        raise FileNotFoundError(
+            f"{sd_dir} is not a whole diffusers SD directory: no "
+            f"{', '.join(p + '/' for p in missing)}")
+
+
+def load_sd_dir(sd_dir: str, unet: torch.nn.Module, vae: torch.nn.Module,
+                device: Optional[torch.device] = None
+                ) -> Tuple[torch.nn.Module, torch.nn.Module, torch.nn.Module,
+                           Callable]:
+    """A diffusers-layout SD directory -> (unet, vae, text encoder,
+    text_encode). The UNet and VAE weights are copied into the given
+    modules (f32; the caller casts them); the text encoder is a
+    guidance/clip.CLIPTextTransformer in f32 on `device` (default: the
+    UNet's device), frozen. text_encode(prompts) -> f32 [n, 77, D]; it
+    carries the tokenizer and the text model as attributes."""
+    from dreamfusion_torch.guidance.clip import CLIPTextTransformer
+    from dreamfusion_torch.guidance.tokenizer import CLIPBPETokenizer
+    from dreamfusion_torch.weights import load_hf_clip
+
+    check_sd_dir(sd_dir)
+    load_converted(unet, load_module_dir(os.path.join(sd_dir, "unet")))
+    load_converted(vae, load_module_dir(os.path.join(sd_dir, "vae")))
+    te_dir = os.path.join(sd_dir, "text_encoder")
+    with open(os.path.join(te_dir, "config.json")) as f:
+        te_cfg = json.load(f)
+    text_model = CLIPTextTransformer(te_cfg)
+    load_hf_clip(text_model, load_module_dir(te_dir), prefix="text_model.")
+    if device is None:
+        device = next(unet.parameters()).device
+    text_model = text_model.to(device).eval().requires_grad_(False)
+    tokenizer = CLIPBPETokenizer.from_dir(os.path.join(sd_dir, "tokenizer"))
+
+    def text_encode(prompts):
+        ids = torch.from_numpy(tokenizer(list(prompts))).to(device)
+        with torch.no_grad():
+            return text_model.last_hidden_state(ids)
+
+    text_encode.tokenizer, text_encode.text_model = tokenizer, text_model
+    return unet, vae, text_model, text_encode

@@ -7,12 +7,17 @@ so d(loss)/d(latents) = w (eps_hat - eps), the reference's
 latents.backward(gradient=...) (nerf/sd.py:74-118). Per step: bilinear
 resize to 512^2 -> VAE encode (with grad) * 0.18215 -> t ~ U{20..980} ->
 add noise -> UNet with CFG (no grad) -> w = 1 - alphas_cumprod[t].
+
+``build_sd_guidance`` builds random models or loads a local diffusers SD
+directory with its text encoder (``build_guidance`` finds a mounted one
+through guidance/sd/probe.py).
 """
 
 from __future__ import annotations
 
 import hashlib
-from typing import Dict, Optional
+import os
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -114,22 +119,34 @@ def build_sd_guidance(weights: Optional[str] = None,
                       dtype: torch.dtype = torch.float32,
                       device: Optional[torch.device] = None,
                       generator: Optional[torch.Generator] = None) -> Guidance:
-    """Randomly initialised SD guidance: 'random-full' (SD v1.5 widths, in
-    `dtype`), 'random-tiny' / None or 'random-nano' (f32, 64 px images).
-    A weights directory raises: its text encoder is not ported."""
+    """SD guidance: 'random-full' (SD v1.5 widths, random, in `dtype`),
+    'random-tiny' / None or 'random-nano' (random, f32, 64 px images), or a
+    local diffusers SD directory (SD v1.5 widths, its weights in `dtype`,
+    its CLIP text encoder and tokenizer; guidance/sd/convert.load_sd_dir).
+    Any other name raises: a hub name would need the network."""
     device = resolve_device(device)
+    text_encode = None
     if weights == "random-nano":
         unet, vae, latent_size, compute = nano_unet(), nano_vae(), 8, torch.float32
     elif weights in (None, "random-tiny"):
         unet, vae, latent_size, compute = tiny_unet(), tiny_vae(), 8, torch.float32
     elif weights == "random-full":
         unet, vae, latent_size, compute = sd15_unet(), sd15_vae(), 64, dtype
+    elif os.path.isdir(weights):
+        from dreamfusion_torch.guidance.sd.convert import (check_sd_dir,
+                                                           load_sd_dir)
+
+        check_sd_dir(weights)          # before building the SD v1.5 modules
+        unet, vae, _, text_encode = load_sd_dir(
+            weights, sd15_unet().to(device), sd15_vae().to(device))
+        return sd_guidance(freeze(unet, dtype), freeze(vae, dtype), 64,
+                           guidance_scale, generator=generator,
+                           text_encode=text_encode)
     else:
         raise NotImplementedError(
-            f"SD weights {weights!r}: only random-full / random-tiny / "
-            "random-nano are ported. A diffusers SD directory's UNet and "
-            "VAE load through guidance/sd/convert.py, but its CLIP text "
-            "encoder and tokenizer are not ported")
+            f"SD weights {weights!r}: not random-full / random-tiny / "
+            "random-nano nor a local diffusers SD directory (a hub name "
+            "would need the network)")
     unet = freeze(init_sd_module(unet.to(device), generator), compute)
     vae = freeze(init_sd_module(vae.to(device), generator), compute)
     return sd_guidance(unet, vae, latent_size, guidance_scale,
@@ -138,17 +155,23 @@ def build_sd_guidance(weights: Optional[str] = None,
 
 def sd_guidance(unet: UNet2DCondition, vae: AutoencoderKL, latent_size: int,
                 guidance_scale: float = 100.0,
-                generator: Optional[torch.Generator] = None) -> Guidance:
-    """Guidance around frozen SD modules (on the modules' device)."""
+                generator: Optional[torch.Generator] = None,
+                text_encode: Optional[Callable] = None) -> Guidance:
+    """Guidance around frozen SD modules (on the modules' device).
+    text_encode (optional): prompts -> [n, 77, D], a loaded text encoder;
+    without one, pseudo_text_embeds stands in (random-weight models)."""
     device = unet.conv_in.weight.device
     text_dim = unet.cross_attention_dim
     sched = make_schedule(device=device)
 
+    def embed(prompts):
+        if text_encode is not None:
+            return text_encode(list(prompts)).float()
+        return pseudo_text_embeds(list(prompts), text_dim, device)
+
     def get_text_embeds(prompts, negatives):
         """[n] prompts -> [n, 2, 77, D] (uncond, cond)."""
-        cond = pseudo_text_embeds(list(prompts), text_dim, device)
-        uncond = pseudo_text_embeds(list(negatives), text_dim, device)
-        return torch.stack([uncond, cond], dim=1)
+        return torch.stack([embed(negatives), embed(prompts)], dim=1)
 
     def loss(text_z, pred_rgb, draws=None, gen=None):
         return sds_loss(unet, vae, sched, text_z, pred_rgb,
@@ -158,5 +181,6 @@ def sd_guidance(unet: UNet2DCondition, vae: AutoencoderKL, latent_size: int,
 
     return Guidance(name="stable-diffusion",
                     modules={"unet": unet, "vae": vae,
-                             "latent_size": latent_size},
+                             "latent_size": latent_size,
+                             "text_encode": text_encode},
                     get_text_embeds=get_text_embeds, loss=loss)

@@ -16,9 +16,13 @@ its 360-degree orbit.
   python -m dreamfusion_torch.main -O --text "a hamburger" --gui
 
 ``-O`` trains with the occupancy-grid renderer, ``-O2`` with the
-stratified renderer (64 + 64 samples a ray), both with SDS guidance on
-randomly initialised SD v1.5-sized models (``--sd_weights random-full``,
-the default) unless ``--guidance clip`` (random-tiny CLIP) or ``none``;
+stratified renderer (64 + 64 samples a ray), both with SDS guidance
+unless ``--guidance clip`` (random-tiny CLIP, or a local CLIP directory)
+or ``none``. ``--sd_weights`` names a local diffusers SD directory or
+random models (``random-full``: SD v1.5 widths); unset or
+``random-full``, a directory found by the probe (``$SD_WEIGHTS_DIR``, the
+mount globs) is loaded, and otherwise unset builds the random-tiny models,
+as the JAX package does;
 ``--backbone vanilla`` takes the 5 x 128 ResMLP field. Training evaluates
 every ``eval_interval`` epochs, then renders the ``--test_size``-frame
 orbit at ``--H`` x ``--W`` (the grid renderer's staged eval, or the

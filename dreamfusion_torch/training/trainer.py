@@ -512,8 +512,8 @@ def make_eval_render(cfg: Config, model: _BaseNeRF, H: int, W: int,
 
 
 def write_png(path: str, img: np.ndarray) -> None:
-    """uint8 [H, W] (grey) or [H, W, 3] (RGB) -> an 8-bit PNG file, with
-    zlib and struct only."""
+    """uint8 [H, W] (grey), [H, W, 3] (RGB) or [H, W, 4] (RGBA) -> an 8-bit
+    PNG file, with zlib and struct only."""
     img = np.ascontiguousarray(img, dtype=np.uint8)
     h, w = img.shape[:2]
     raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)],
@@ -523,8 +523,9 @@ def write_png(path: str, img: np.ndarray) -> None:
         return (struct.pack(">I", len(data)) + tag + data
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
-    header = struct.pack(">IIBBBBB", w, h, 8, 2 if img.ndim == 3 else 0,
-                         0, 0, 0)
+    channels = 1 if img.ndim == 2 else img.shape[2]
+    ctype = {1: 0, 3: 2, 4: 6}[channels]        # PNG colour type
+    header = struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)
     with open(path, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
                 + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))

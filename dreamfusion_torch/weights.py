@@ -18,12 +18,27 @@ field's ``sigma_net.block_i.{dense,norm}``, ``block_0.skip`` and
 guidance/clip.py (a FlaxCLIPModel's tree); a VAE tree fills the whole
 port VAE, its ``decoder`` and ``post_quant_conv`` included.
 
+``from_jax_dvgo(np_tree)`` is from_jax_params for a DVGOField tree
+(``density``, ``k0``, ``rgbnet/dense_in|res_N|dense_out`` or ``dense_N``),
+checked for both grids.
+
+``from_hf_clip(hf_sd, template, prefix)`` maps a transformers CLIP state
+dict (``text_model.encoder.layers.N.self_attn.q_proj.weight``, ...; the
+layouts are already torch's) onto the port's CLIP modules of
+guidance/clip.py: ``*_embedding.weight`` becomes ``*_embedding.embedding``,
+the ``position_ids`` buffer older checkpoints hold is checked to be
+0..n-1 and dropped, and guidance/sd/convert.convert_state_dict raises on a
+missing, extra or mis-shaped tensor. ``prefix`` ("text_model.") takes a
+CLIPTextModel's dict onto a bare CLIPTextTransformer (SD's text encoder);
+``load_hf_clip`` copies the result in.
+
 ``from_jax_grid_state(state)`` carries the occupancy-grid state across, so
 that both packages render a frame from the same grid.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
@@ -67,6 +82,45 @@ def from_jax_params(np_tree: Mapping) -> Dict[str, torch.Tensor]:
         key, val = _convert(name, arr)
         out[key] = torch.from_numpy(np.array(val, np.float32, order="C"))
     return out
+
+
+def from_jax_dvgo(np_tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX DVGOField params tree -> the port DVGOField's state dict."""
+    sd = from_jax_params(np_tree)
+    missing = [k for k in ("density", "k0") if k not in sd]
+    if missing:
+        raise ValueError(f"not a DVGOField tree: no {missing}")
+    return sd
+
+
+def from_hf_clip(hf_sd: Mapping[str, np.ndarray],
+                 template: Mapping[str, torch.Tensor],
+                 prefix: str = "") -> Dict[str, np.ndarray]:
+    """transformers CLIP names -> the keys of `template` (the state dict of
+    a port CLIP module); see the module docstring."""
+    from dreamfusion_torch.guidance.sd.convert import convert_state_dict
+
+    renamed: Dict[str, np.ndarray] = {}
+    for name, arr in hf_sd.items():
+        if prefix and name.startswith(prefix):
+            name = name[len(prefix):]
+        if name.endswith("position_ids"):
+            arr = np.asarray(arr)
+            if not np.array_equal(arr.reshape(-1), np.arange(arr.size)):
+                raise ValueError(f"{name} is not 0..{arr.size - 1}")
+            continue
+        renamed[re.sub(r"(token|position)_embedding\.weight$", r"\1_embedding.embedding",
+                       name)] = arr
+    return convert_state_dict(renamed, template)
+
+
+def load_hf_clip(module: torch.nn.Module, hf_sd: Mapping[str, np.ndarray],
+                 prefix: str = "") -> torch.nn.Module:
+    """from_hf_clip onto `module`, copied in as f32."""
+    conv = from_hf_clip(hf_sd, module.state_dict(), prefix)
+    module.load_state_dict({k: torch.from_numpy(np.array(v, np.float32))
+                            for k, v in conv.items()}, strict=True)
+    return module
 
 
 def from_jax_grid_state(state: Any,

@@ -20,7 +20,8 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "flax", "optax", "dreamfusion_tpu", "jaxlib")
+FORBIDDEN = ("jax", "flax", "optax", "dreamfusion_tpu", "jaxlib", "transformers",
+             "tokenizers", "safetensors", "regex")
 
 
 def _port_files():
@@ -46,7 +47,8 @@ def test_port_imports_nothing_of_jax():
     files = _port_files()
     assert len(files) > 20 and all(f.exists() for f in files)
     pkg = ROOT / "dreamfusion_torch"
-    for sub in ("export", "apps", "guidance/sd", "ops", "training"):
+    for sub in ("export", "apps", "guidance/sd", "ops", "training",
+                "datasets"):
         assert any(f.parent == pkg / sub for f in files), sub
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
@@ -99,7 +101,8 @@ def test_entry_points_raise_without_gpu(tmp_path):
 @pytest.mark.parametrize("builder", [
     "build_model", "build_sd_guidance", "none_guidance", "sample_train_batch",
     "init_grid_state", "make_schedule", "sample_test_batch", "circle_poses",
-    "from_jax_grid_state", "prompt_to_img", "export_textured_mesh"])
+    "from_jax_grid_state", "prompt_to_img", "export_textured_mesh",
+    "build_clip_guidance", "DVGOTrainer", "train_nerf_models"])
 def test_public_builders_default_to_the_gpu(builder):
     """Without a device argument the builders put their tensors on the GPU,
     so on a GPU-less host they raise rather than build on the CPU."""
@@ -115,6 +118,11 @@ def test_public_builders_default_to_the_gpu(builder):
     from dreamfusion_torch.models.networks import build_model
     from dreamfusion_torch.ops.marching import GridState, init_grid_state
     from dreamfusion_torch.weights import from_jax_grid_state
+    from dreamfusion_torch.guidance.clip import build_clip_guidance
+    from dreamfusion_torch.models.dvgo import DVGOField
+    from dreamfusion_torch.training.dvgo_trainer import (DVGOStageConfig,
+                                                         DVGOTrainer)
+    from dreamfusion_torch.training.nerf_pipeline import train_nerf_models
 
     cfg = Config(text="x", h=8, w=8)
     grid = GridState(density_grid=np.zeros((1, 8, 8, 8), np.float32),
@@ -134,9 +142,28 @@ def test_public_builders_default_to_the_gpu(builder):
         "export_textured_mesh": lambda: export_textured_mesh(
             lambda x: {"sigma": x[:, 0], "albedo": x}, "unused",
             resolution=4, chunk=64),
+        "build_clip_guidance": lambda: build_clip_guidance("random-tiny"),
+        "DVGOTrainer": lambda: DVGOTrainer(
+            DVGOField(world_size=(4, 4, 4)), DVGOStageConfig(), near=1.0,
+            far=2.0),
+        "train_nerf_models": lambda: train_nerf_models(
+            {"cfg_data": None, "data_dict": _tiny_scene(),
+             "coarse_model": {"num_voxels": 64}}, log_fn=lambda *a: None),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[builder]()
+
+
+def _tiny_scene():
+    """Two 4 x 4 views of nothing (a train and a test split) for the DVGO
+    pipeline's entry point."""
+    poses = np.tile(np.eye(4, dtype=np.float32), (2, 1, 1))
+    poses[:, 2, 3] = 3.0
+    K = np.array([[4.0, 0, 2], [0, 4.0, 2], [0, 0, 1]], np.float32)
+    return {"HW": np.array([[4, 4], [4, 4]]), "Ks": np.stack([K, K]),
+            "poses": poses, "images": np.ones((2, 4, 4, 3), np.float32),
+            "near": 1.0, "far": 5.0, "i_train": np.array([0]),
+            "i_test": np.array([1])}
 
 
 def test_main_trains_on_cpu_when_asked_and_test_raises(tmp_path):

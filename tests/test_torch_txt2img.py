@@ -244,8 +244,16 @@ def test_cli_writes_png(tmp_path):
 
 
 def test_build_sd_guidance_refuses_a_directory(tmp_path):
-    with pytest.raises(NotImplementedError, match="text encoder"):
+    """A directory without the text encoder and tokenizer (unet/ and vae/
+    only, which the probe accepts) is refused before any module is built;
+    a name that is no directory raises too (a hub name needs the network)."""
+    for sub in ("unet", "vae"):
+        (tmp_path / sub).mkdir()
+    with pytest.raises(FileNotFoundError, match="text_encoder/, tokenizer/"):
         tsds.build_sd_guidance(str(tmp_path), device="cpu")
+    with pytest.raises(NotImplementedError, match="hub name"):
+        tsds.build_sd_guidance("runwayml/stable-diffusion-v1-5",
+                               device="cpu")
 
 
 def test_unknown_sampler_raises():
