@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases build,options,dp,kernels   # slice 9
     python3 chip_smoke.py --phases build,txt2img,export,gui,kernels  # slice 10
     python3 chip_smoke.py --phases build,pretrain,sd_dir     # slice 11
+    python3 chip_smoke.py --phases build,zoo,jobs            # slice 12
 
 Phases:
   build    compile every CUDA kernel of the main path from
@@ -152,6 +153,31 @@ Phases:
            two prompts equal to the CPU path (rtol 1e-5), one UNet eps
            against the source module; 5 SDS steps of -O on it; the load
            wall, text-encode ms and steps/s; the directory deleted;
+  zoo      the DVGO model zoo and the OSR fields (models/zoo.py,
+           models/osr.py), the 12 classes of the registry beyond the base,
+           each at DVGO fine width (160^3 grids in a +-1.1 box, k0 12, a
+           128 x 3 decoder of the kind the JAX package's tests give it, PE
+           5 / 4, stepsize 0.5), its density the ball of the ball scene
+           (written once for zoo and jobs, as for pretrain): 5 DVGOTrainer
+           steps of 8,192 rays (finite losses, every parameter moved, env
+           too; steps/s after 2, peak memory, one step's device time by
+           kernel), 64 rays on the card against the CPU copy with the same
+           draws (rtol 1e-4 / atol 1e-5; OSR_Fine and V2, whose normal
+           steers, within 3x a CPU control with the ray origins moved an
+           ulp either way, and their normal on the same positions to
+           1e-4 / 1e-5), one OSR_Fine evaluate batch under no_grad; no
+           kernel on this path;
+  jobs     the job layer: LocalBackend.submit of
+           dreamfusion_torch.training.jobs:train_model(params_for_nerf(<the
+           ball scene>)) as a subprocess on the card, at the widths of
+           nerf_pipeline.DEFAULTS, cut in depth to 500 coarse iterations
+           (fewer leave the fine box short of the ball) and 100 fine (the
+           mesh needs trained densities); its job directory checked
+           (params.json, test/psnr in
+           metrics.jsonl, the weight-hash line, the .dvgo); then
+           `python -m dreamfusion_torch.examples.edit_scene` on that .dvgo
+           with --iters 3, as the example is written (36 orbit frames at
+           800x800, save_mesh(256)): each part's wall and its launches;
   kernels  each kernel against its plain PyTorch version on the card at the
            main paths' shapes (grid-encoder scatter at the dense and the
            compacted steps' sample counts and all 16 level sizes, plus a
@@ -3195,6 +3221,373 @@ def phase_sd_dir(steps: int = 5):
     return counts
 
 
+# -- slice 12: the DVGO model zoo, the OSR fields and the job layer ---------------
+
+# each class of the registry beyond the base, with the decoder the JAX
+# package's tests give it (tests/test_zoo.py:24-34, tests/test_osr.py:39-47)
+ZOO_FIELDS = (("dvp_fine", "basicmlp"), ("nwnn_fine", None),
+              ("ffl_fine", "basicmlp"), ("fastffl_fine", "basicmlp"),
+              ("dvgo360_fine", "basicmlp"), ("osr_fine", "shadowmlp"),
+              ("osr_v2_fine", "shadowmlp"), ("osr_v3_fine", "basicmlp"),
+              ("osr_v4_fine", "separateshadowmlp"),
+              ("osr_v5_fine", "basicmlp"), ("osr_v6_fine", "basicmlp"),
+              ("osr_rgi_fine", "basicmlp"))
+ZOO_BOX = 1.1                   # the field's box: the ball of radius 1 and a margin
+ZOO_WORLD, ZOO_RAYS = 160, 8192     # DVGO fine width; rays a step
+# the OSR fields whose normal (a second-order term in training) steers
+# their colour: held to 3x a CPU control whose ray origins move by an ulp
+NORMAL_FIELDS = ("osr_fine", "osr_v2_fine")
+
+
+def ball_density(world: int, box: float, seed: int, radius: float = 1.0,
+                 slope: float = 100.0, noise: float = 0.5) -> torch.Tensor:
+    """[1, W, W, W] density of the ball scene's ball in a +-box grid, as
+    write_dvgo seeds its scene: clamp((radius - r) * slope, -20, 30) plus
+    noise of std `noise`; the floor of -20 keeps the empty samples' weight
+    (alpha ~1e-11 after DVGO's act_shift) under fast_color_thres."""
+    g = torch.Generator().manual_seed(seed)
+    lin = torch.linspace(-box, box, world)
+    X, Y, Z = torch.meshgrid(lin, lin, lin, indexing="ij")
+    r = torch.sqrt(X * X + Y * Y + Z * Z)
+    d = torch.clamp((radius - r) * slope, -20.0, 30.0) \
+        + noise * torch.randn(world, world, world, generator=g)
+    return d[None]
+
+
+def _zoo_card_vs_cpu(name, field, batch, near, far, gen):
+    """64 rays of the field rendered on the card and by its CPU copy with
+    the same draws (under no_grad, the OSR normals in their local
+    enable_grad): every output to rtol 1e-4 / atol 1e-5, or, for the fields
+    whose normal steers, within 3x a CPU control whose ray origins move by
+    one ulp either way (the per-sample outputs a live mask fills, where
+    both devices' masks agree; OSR's marched normal and irradiance on the
+    rays where the samples whose mask differs weigh <= 1e-5 of the ray);
+    for those fields the normal (alpha's
+    position gradient) also at the CPU's live sample positions on both
+    devices, rtol 1e-4 / atol 1e-5 of its largest entry. FastFFL's rays with a sample whose u lies within 1e-6 of
+    a cdf entry are counted and left out (the two may pick another
+    corner).
+    Returns (worst gap / its bound, the rays compared)."""
+    from dreamfusion_torch.models.dvgo import sample_ray
+
+    n = 64
+    rays_d, rays_o, viewdirs = (b[:n].cpu() for b in batch[:3])
+    S = field.n_render_samples(far)
+    draws = {k: (torch.rand if kind == "uniform" else torch.randn)(
+        *shape, generator=gen) for k, (shape, kind) in
+        field.draw_spec(n, S).items()}
+    cpu_field = copy.deepcopy(field).cpu()
+    kw = dict(near=near, far=far, bg=torch.ones(3), n_samples=S)
+    with torch.no_grad():
+        got = field.render(rays_o.cuda(), rays_d.cuda(), viewdirs.cuda(),
+                           **dict(kw, bg=kw["bg"].cuda()),
+                           **{k: v.cuda() for k, v in draws.items()})
+        ref = cpu_field.render(rays_o, rays_d, viewdirs, **kw, **draws)
+        ctl = None
+        if name in NORMAL_FIELDS:
+            # the trilinear position gradient jumps where a sample crosses a
+            # cell face, and the card rounds the sample positions otherwise
+            # (FMA): the control moves the ray origins one ulp either way
+            # (a jitter moved by 2^-24 moves no sample past the first:
+            # arange(S) + jitter absorbs it)
+            ctl = [cpu_field.render(torch.nextafter(rays_o, torch.full_like(
+                rays_o, sign * math.inf)), rays_d, viewdirs, **kw, **draws)
+                for sign in (1, -1)]
+        keep = torch.ones(n, dtype=torch.bool)
+        if "choice_u" in draws:
+            pts, oob = sample_ray(
+                rays_o, rays_d, near=near, far=far, xyz_min=cpu_field.mins,
+                xyz_max=cpu_field.maxs, voxel_size=cpu_field.voxel_size,
+                stepsize=cpu_field.stepsize, n_samples=S,
+                jitter=draws["jitter"])
+            alpha = torch.where(oob, 0.0, cpu_field.query_alpha(pts))
+            live = alpha > cpu_field.alpha_thres
+            _, w = cpu_field._liif_features(pts[live],
+                                            viewdirs[:, None].expand(
+                                                pts.shape)[live])
+            tie = torch.zeros_like(live)
+            tie[live] = ((torch.cumsum(w, -1) + 1e-3
+                          - draws["choice_u"][live]).abs() < 1e-6).any(-1)
+            keep = ~tie.any(-1)
+            log(f"[zoo] {name}: {int(tie.sum())} of {int(live.sum())} live "
+                f"samples within 1e-6 of a cdf entry; {int(keep.sum())} of "
+                f"{n} rays compared")
+    # the per-sample outputs that a live mask fills (0.5, 1, 0 where
+    # weights <= fast_color_thres): compared where both devices' masks
+    # agree. Near the ball's edge alpha = 1 - exp(-x) is quantised to steps
+    # of ~6e-8 in f32, so a sample's weight can fall on either side of the
+    # 1e-7 threshold on the two devices (its weight moves the marched
+    # colour by ~1e-8). OSR's marched normal (and the irradiance read from
+    # it) normalises a weighted sum: on a ray that misses the ball every
+    # weight is below ~1e-7, and one such sample on the other side of the
+    # mask (V2 also masks weights > 0) turns its direction; those two are
+    # compared on the rays whose flipped samples carry at most 1e-5 of the
+    # ray's weight
+    thr = field.fast_color_thres
+    wg, wc = got["weights"].cpu()[keep], ref["weights"][keep]
+    flip = ((wg > thr) != (wc > thr)) | ((wg > 0) != (wc > 0))
+    steady = (torch.where(flip, torch.maximum(wg, wc), 0.0).sum(-1)
+              <= 1e-5 * wc.sum(-1))
+    ratios = {}
+    for k, r in ref.items():
+        g, r = got[k].cpu()[keep], r[keep]
+        bound = 1e-5 + 1e-4 * r.abs()
+        if ctl is not None:
+            bound = torch.maximum(bound, 3 * torch.maximum(
+                (ctl[0][k][keep] - r).abs(), (ctl[1][k][keep] - r).abs()))
+        ratio = (g - r).abs() / bound
+        if k in ("raw_rgb", "raw_shadow", "raw_rg"):
+            ratio = ratio[~flip]
+        elif k in ("normal_marched", "irradiance"):
+            ratio = ratio[steady]
+        ratios[k] = float(ratio.max()) if ratio.numel() else 0.0
+    if name in NORMAL_FIELDS:
+        # the normal itself (d alpha / d position, a second derivative of
+        # the density in training) at the same positions on both devices:
+        # the CPU's live samples
+        with torch.no_grad():
+            pts, _ = sample_ray(
+                rays_o, rays_d, near=near, far=far, xyz_min=cpu_field.mins,
+                xyz_max=cpu_field.maxs, voxel_size=cpu_field.voxel_size,
+                stepsize=cpu_field.stepsize, n_samples=S,
+                jitter=draws["jitter"])
+        pts = pts[ref["weights"] > thr]
+        g_ref = cpu_field.alpha_gradient(pts)
+        g_got = field.alpha_gradient(pts.cuda()).cpu()
+        ratios["alpha_gradient"] = float(((g_got - g_ref).abs() / (
+            1e-5 * g_ref.abs().max() + 1e-4 * g_ref.abs())).max())
+    worst = max(ratios, key=ratios.get)
+    log(f"[zoo] {name} card vs CPU: {int(flip.sum())} of {flip.numel()} "
+        f"samples on either side of the live mask on the two devices, "
+        f"{int((~steady).sum())} rays where they weigh; gap / bound by "
+        f"output: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in ratios.items()))
+    return ratios[worst], int(keep.sum())
+
+
+def phase_zoo(data, steps: int = 5, warmup: int = 2):
+    """Each class of the zoo and the OSR fields (12) at DVGO fine width
+    (160^3 grids, k0 12, a 128 x 3 decoder of the kind the JAX tests give
+    it, PE 5 / 4, stepsize 0.5; NeRFWoNN k0 12 = SH degree 2), its density
+    the ball scene's ball (ball_density), trained `steps` steps by
+    DVGOTrainer on the ball scene `data`, 8,192 rays a step: losses finite,
+    every parameter moved (env too), steps/s after `warmup`, peak memory,
+    one step's device time by kernel; 64 rays against the CPU copy
+    (_zoo_card_vs_cpu); one evaluate batch of OSR_Fine under no_grad.
+    OSR_Fine_RGI returns no raw_rgb, so it trains with weight_rgbper 0, as
+    the JAX package must. Returns the launch counts of the training steps
+    (the path has no hand-written kernel)."""
+    from dreamfusion_torch.models.zoo import get_field
+    from dreamfusion_torch.ops import cuda as kcuda
+    from dreamfusion_torch.training.dvgo_trainer import (DVGOStageConfig,
+                                                         DVGOTrainer)
+    from dreamfusion_torch.training.nerf_pipeline import _loader
+
+    dev = torch.device("cuda")
+    near, far = data["near"], data["far"]
+    def batches():              # the shuffled train rays, epoch after epoch
+        loader = _loader(data, {}, "i_train", "random", ZOO_RAYS)
+        while True:
+            yield from loader
+
+    train = batches()
+    # ZOO_RAYS test rays drawn from all the test views' pixels (in order,
+    # the first rows of a view miss the ball)
+    test_all = next(iter(_loader(data, {}, "i_test", "random", 1 << 30)))
+    gen = torch.Generator().manual_seed(12)
+    pick = torch.randperm(len(test_all[0]), generator=gen)[:ZOO_RAYS].numpy()
+    test_batch = tuple(b[pick] for b in test_all)
+    counts, failed = {}, []
+    for i, (name, decoder) in enumerate(ZOO_FIELDS):
+        t_cls = time.perf_counter()
+        field = get_field(name, world_size=(ZOO_WORLD,) * 3, k0_dim=12,
+                          rgbnet_name=decoder, rgbnet_width=128,
+                          rgbnet_depth=3, posbase_pe=5, viewbase_pe=4,
+                          xyz_min=(-ZOO_BOX,) * 3, xyz_max=(ZOO_BOX,) * 3,
+                          alpha_init=1e-2, stepsize=0.5)
+        stage = DVGOStageConfig(n_iters=steps, batch_size=ZOO_RAYS,
+                                weight_rgbper=0.0 if name == "osr_rgi_fine"
+                                else 0.1)
+        tr = DVGOTrainer(field, stage, near=near, far=far, seed=i, device=dev)
+        with torch.no_grad():
+            field.density.copy_(ball_density(ZOO_WORLD, ZOO_BOX, seed=i))
+        before = {k: p.detach().clone() for k, p in field.named_parameters()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kcuda.reset_counts()
+        losses = []
+        for it in range(steps):
+            if it == warmup:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            losses.append(tr.step(next(train))["loss"])
+        torch.cuda.synchronize()
+        rate = (steps - warmup) / (time.perf_counter() - t0)
+        for k, v in kcuda.launch_counts.items():
+            counts[k] = counts.get(k, 0) + v
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = torch.stack(losses).cpu()
+        moved = {k: float((p.detach() - before[k]).abs().max())
+                 for k, p in field.named_parameters()}
+        _profiled(lambda: tr.step(next(train)), 1, f"{name} step", (),
+                  top=3)
+        worst, n_cmp = _zoo_card_vs_cpu(name, field, tr._batch(test_batch),
+                                        near, far, gen)
+        log(f"[zoo] {name} ({type(field).__name__}, {decoder}): "
+            f"{tr.n_samples} samples a ray; losses "
+            + " ".join(f"{float(v):.4g}" for v in losses)
+            + f"; {rate:.4f} steps/s after {warmup}; peak {peak:.2f} GiB"
+            f"; smallest parameter move {min(moved.values()):.3e}"
+            + (f" (env {moved['env']:.3e})" if "env" in moved else "")
+            + f"; card vs CPU on {n_cmp} rays: worst gap / bound {worst:.3f}"
+            f"; {time.perf_counter() - t_cls:.1f} s")
+        if not bool(torch.isfinite(losses).all()):
+            failed.append(f"{name}: a loss is not finite")
+        if min(moved.values()) <= 0:
+            failed.append(f"{name}: parameters did not move: "
+                          f"{[k for k, v in moved.items() if v <= 0]}")
+        if not worst <= 1.0:
+            failed.append(f"{name}: the card's render is off the CPU's "
+                          f"({worst:.3f} of its bound)")
+        if name == "osr_fine":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            psnr_eval = tr.evaluate([test_batch])
+            log(f"[zoo] osr_fine evaluate, one batch of 8,192 test rays "
+                f"under no_grad: PSNR {psnr_eval:.3f} dB, "
+                f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+            if not math.isfinite(psnr_eval):
+                failed.append("osr_fine: evaluate is not finite")
+        del tr, field, before
+        torch.cuda.empty_cache()
+    log(f"[zoo] kernels of the zoo's training steps {json.dumps(counts)}")
+    if failed:        # every class runs first, then the phase fails
+        raise AssertionError("; ".join(failed))
+    if any(counts.values()):
+        raise AssertionError("the zoo's steps launched a hand-written kernel; "
+                             f"their path has none: {counts}")
+    return counts
+
+
+# the job's depth: 500 coarse iterations (from DVGO's N(0, 1) init at lr
+# 0.1, 100 leave no coarse cell above the fine box's alpha threshold and 300
+# a box short of the ball, on the CPU at 100x100 views) and 100 fine (the
+# mesh of edit_scene needs densities above ~5.1: sigma 10 after the edit
+# field's softplus x 10)
+JOB_COARSE_ITERS, JOB_FINE_ITERS = 500, 100
+
+
+def phase_jobs(scene: str):
+    """The job layer on the card: LocalBackend.submit of
+    dreamfusion_torch.training.jobs:train_model with params_for_nerf(the
+    ball scene) as a subprocess (the widths of nerf_pipeline.DEFAULTS; cut
+    in depth to JOB_COARSE_ITERS coarse and JOB_FINE_ITERS fine
+    iterations), its job directory checked (params.json, metrics.jsonl with
+    test/psnr, the weight-hash line, the .dvgo); then the port's
+    edit_scene on that .dvgo with --iters 3 and a workspace in a temporary
+    directory, as the example is written (36 orbit frames, save_mesh(256)).
+    Returns the launch counts of the edit_scene run."""
+    import shutil
+
+    from dreamfusion_torch.examples import edit_scene
+    from dreamfusion_torch.ops import cuda as kcuda
+    from dreamfusion_torch.training.jobs import params_for_nerf
+    from dreamfusion_torch.utils import results
+    from dreamfusion_torch.utils.backend import LocalBackend
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_jobs_")
+    try:
+        params = params_for_nerf(scene, save_name=os.path.join(tmp,
+                                                               "ball.dvgo"))
+        params["coarse_train"]["n_iters"] = JOB_COARSE_ITERS
+        params["fine_train"]["n_iters"] = JOB_FINE_ITERS
+        params["log_every"] = 100
+        be = LocalBackend(root=os.path.join(tmp, "jobs"))
+        job_log = os.path.join(tmp, "job.log")
+        sys.stdout.flush()
+        saved = os.dup(1)
+        t0 = time.perf_counter()
+        with open(job_log, "w") as f:     # the job's stdout, read below
+            os.dup2(f.fileno(), 1)
+            try:
+                rc = be.submit("dreamfusion_torch.training.jobs:train_model",
+                               params)
+            finally:
+                os.dup2(saved, 1)
+                os.close(saved)
+        t_job = time.perf_counter() - t0
+        with open(job_log) as f:
+            lines = f.read().splitlines()
+        for ln in lines[-6:]:
+            log(f"[jobs] job: {ln[:200]}")
+        if rc != 0:
+            raise AssertionError(f"the train_model job exited {rc}")
+        [job_dir] = [os.path.join(be.root, d) for d in os.listdir(be.root)]
+        job = results.load_job(job_dir)
+        psnr = job["metrics"]["test/psnr"][-1]
+        hashes = [ln.split()[-1] for ln in lines if "model weight hash:" in ln]
+        dvgo = os.path.join(job_dir, "ball.dvgo")
+        log(f"[jobs] LocalBackend.submit(train_model, params_for_nerf(<ball "
+            f"scene>), {JOB_COARSE_ITERS} coarse + {JOB_FINE_ITERS} fine "
+            f"iterations): rc {rc}, wall {t_job:.1f} s (the subprocess's "
+            f"start, load_data, both stages, the test PSNR and the .dvgo); "
+            f"job directory {sorted(os.listdir(job_dir))}; test/psnr "
+            f"{psnr:.3f} dB; weight hash {hashes[-1] if hashes else None}")
+        if not (math.isfinite(psnr) and len(hashes) == 1
+                and len(hashes[0]) == 64 and os.path.exists(dvgo)
+                and job["params"]):
+            raise AssertionError("the job directory is incomplete")
+
+        walls = {}
+        plain = edit_scene.Trainer
+
+        class TimedTrainer(plain):
+            """edit_scene's Trainer, each call's wall recorded."""
+
+        for meth in ("train", "test", "save_mesh"):
+            def timed(self, *a, _m=meth, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = getattr(plain, _m)(self, *a, **kw)
+                torch.cuda.synchronize()
+                walls[_m] = time.perf_counter() - t
+                return out
+            setattr(TimedTrainer, meth, timed)
+
+        ws = os.path.join(tmp, "trial_edit")
+        edit_scene.Trainer = TimedTrainer
+        kcuda.reset_counts()
+        t0 = time.perf_counter()
+        try:
+            trainer = edit_scene.main(["--pretrained_dvgo", dvgo, "--iters",
+                                       "3", "--workspace", ws])
+        finally:
+            edit_scene.Trainer = plain
+        torch.cuda.synchronize()
+        t_edit = time.perf_counter() - t0
+        counts = dict(kcuda.launch_counts)
+        frames = [p for p in os.listdir(os.path.join(ws, "results"))
+                  if p.endswith("_rgb.png")]
+        mesh = os.path.join(ws, "mesh", "mesh.obj")
+        losses = torch.stack(trainer.loss_history).float().cpu()
+        log(f"[jobs] edit_scene --pretrained_dvgo <the job's .dvgo> --iters 3 "
+            f"(guidance {trainer.cfg.guidance}, sd_weights "
+            f"{trainer.cfg.sd_weights}): {t_edit:.1f} s in all; train "
+            f"{walls['train']:.1f} s (losses "
+            + " ".join(f"{float(v):.4g}" for v in losses)
+            + f"), test(36) {walls['test']:.1f} s ({len(frames)} frames of "
+            f"{trainer.cfg.H}x{trainer.cfg.W}), save_mesh(256) "
+            f"{walls['save_mesh']:.1f} s ({os.path.getsize(mesh) / 2 ** 20:.1f}"
+            f" MiB OBJ); kernels {json.dumps(counts)}")
+        if len(frames) != 36 or not bool(torch.isfinite(losses).all()):
+            raise AssertionError("edit_scene: frames or losses are off")
+        del trainer
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts
+
+
 def phase_kernels(trainer, counts, captured=None, o2_trainer=None,
                   opt_trainer=None):
     """Every kernel against its plain version; returns the entries of the
@@ -3306,10 +3699,10 @@ def phase_kernels(trainer, counts, captured=None, o2_trainer=None,
     return entries
 
 
-def _profiled(fn, reps: int, label: str, spans):
+def _profiled(fn, reps: int, label: str, spans, top: int = 15):
     """torch.profiler over reps calls of fn: device time per span (names
-    starting with one of spans) and per kernel, the busy share and the
-    device launches per call."""
+    starting with one of spans) and per kernel (the `top` largest), the
+    busy share and the device launches per call."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3343,7 +3736,7 @@ def _profiled(fn, reps: int, label: str, spans):
         log(f"[profile] span {e.key}: host {e.cpu_time_total / 1e3 / reps:.2f} "
             f"ms/{label}, device time of its kernels "
             f"{dev_total(e) / reps:.2f} ms/{label}")
-    for e in sorted(kernels, key=dev_self, reverse=True)[:15]:
+    for e in sorted(kernels, key=dev_self, reverse=True)[:top]:
         log(f"[profile] kernel {dev_self(e) / reps:8.3f} ms/{label} x"
             f"{e.count // reps:<5d} {e.key[:90]}")
     log(f"[profile] kernel launches per {label}: "
@@ -3408,7 +3801,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--phases",
                    default="build,small,train,eval,hashgrid,edit,o2,options,"
-                           "dp,txt2img,export,gui,pretrain,sd_dir,kernels")
+                           "dp,txt2img,export,gui,pretrain,sd_dir,zoo,jobs,"
+                           "kernels")
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--warmup", type=int, default=4)
     args = p.parse_args(argv)
@@ -3480,6 +3874,25 @@ def main(argv=None) -> int:
         counts["pretrain"], counts["pretrain_edit"] = phase_pretrain(guidance)
     if "sd_dir" in phases:
         counts["sd_dir"] = phase_sd_dir()
+    if {"zoo", "jobs"} & set(phases):
+        import shutil
+
+        from dreamfusion_torch.datasets import load_data
+
+        scene_tmp = tempfile.mkdtemp(prefix="chip_smoke_ball_")
+        try:
+            scene = os.path.join(scene_tmp, "ball")
+            t1 = time.perf_counter()
+            write_ball_scene(scene)
+            log(f"[zoo] ball scene written in the Blender layout in "
+                f"{time.perf_counter() - t1:.1f} s")
+            if "zoo" in phases:
+                counts["zoo"] = phase_zoo(load_data(
+                    {"dataset_type": "blender", "datadir": scene}))
+            if "jobs" in phases:
+                counts["jobs"] = phase_jobs(scene)
+        finally:
+            shutil.rmtree(scene_tmp, ignore_errors=True)
     entries = (phase_kernels(trainer, counts, captured, o2_trainer,
                              opt_trainer)
                if "kernels" in phases else [])

@@ -46,11 +46,31 @@ def position_encoding(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
     return torch.cat([x, torch.sin(emb), torch.cos(emb)], -1)
 
 
+def frequency_encoding(x: torch.Tensor, n_freqs: int) -> torch.Tensor:
+    """position_encoding at the frequencies 2^0 .. 2^(n_freqs - 1)."""
+    freqs = torch.exp2(torch.arange(n_freqs, device=x.device,
+                                    dtype=torch.float32))
+    return position_encoding(x, freqs)
+
+
 def cumprod_exclusive(p: torch.Tensor) -> torch.Tensor:
     """[1, p0, p0 p1, ...] with a 1e-10 clamp (modules/utils.py:35-37); one
     more entry than the input, like the reference."""
     c = torch.cumprod(torch.clamp(p, min=1e-10), dim=-1)
     return torch.cat([torch.ones_like(p[..., :1]), c], -1)
+
+
+def live_index(mask: torch.Tensor):
+    """The indices of the True entries of a mask that no gradient follows
+    (a tuple of index tensors, as index_put takes it)."""
+    return mask.detach().nonzero(as_tuple=True)
+
+
+def fill_live(shape, value: float, idx, vals: torch.Tensor) -> torch.Tensor:
+    """A tensor of `shape` holding `value`, and `vals` at the live indices
+    `idx` (the JAX package's where(live, queried, value))."""
+    full = torch.full(shape, value, dtype=vals.dtype, device=vals.device)
+    return full.index_put(idx, vals)
 
 
 def total_variation(v: torch.Tensor,
@@ -115,7 +135,15 @@ def sample_ray(rays_o: torch.Tensor, rays_d: torch.Tensor, *, near: float,
 
 
 class DVGOField(nn.Module):
-    """One DVGO scene field: coarse when rgbnet_name is None, else fine."""
+    """One DVGO scene field: coarse when rgbnet_name is None, else fine.
+
+    The zoo's variants (models/zoo.py, models/osr.py) subclass it: a
+    variant whose rgbnet is built without a name sets default_rgbnet, one
+    whose rgbnet has another output width sets rgbnet_out, and one fed
+    other features overrides rgbnet_in_dim."""
+
+    default_rgbnet: Optional[str] = None
+    rgbnet_out: int = 3
 
     def __init__(self, world_size: Tuple[int, int, int], k0_dim: int = 3,
                  rgbnet_name: Optional[str] = None, rgbnet_width: int = 128,
@@ -147,15 +175,32 @@ class DVGOField(nn.Module):
         self.register_buffer("maxs", torch.tensor(self.xyz_max),
                              persistent=False)
         self.rgbnet = None
-        if rgbnet_name is not None:
-            dim0 = k0_dim
-            if posbase_pe:
-                dim0 += 3 + 3 * posbase_pe * 2
-            if viewbase_pe:
-                dim0 += 3 + 3 * viewbase_pe * 2
-            self.rgbnet = get_MLP(rgbnet_name, in_dim=dim0, out_dim=3,
-                                  width=rgbnet_width, depth=rgbnet_depth,
-                                  k0_dim=k0_dim)
+        name = rgbnet_name or self.default_rgbnet
+        if name is not None:
+            self.rgbnet = get_MLP(name, in_dim=self.rgbnet_in_dim(),
+                                  out_dim=self.rgbnet_out, width=rgbnet_width,
+                                  depth=rgbnet_depth, k0_dim=k0_dim)
+
+    def rgbnet_in_dim(self) -> int:
+        """The width of what the field feeds its rgbnet: k0 and the
+        position and view encodings (the JAX package's dim0)."""
+        dim0 = self.k0_dim
+        if self.posbase_pe:
+            dim0 += 3 + 3 * self.posbase_pe * 2
+        if self.viewbase_pe:
+            dim0 += 3 + 3 * self.viewbase_pe * 2
+        return dim0
+
+    def draw_spec(self, n_rays: int, n_samples: int
+                  ) -> Dict[str, Tuple[Tuple[int, ...], str]]:
+        """The train-time draws ``render`` takes, by keyword: name ->
+        (shape, "uniform" or "normal"), in the order a trainer draws them.
+        The base field: the ray jitter, and the density noise when
+        density_noise > 0."""
+        spec = {"jitter": ((n_rays, 1), "uniform")}
+        if self.density_noise > 0:
+            spec["noise"] = ((n_rays, n_samples), "normal")
+        return spec
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         with torch.no_grad():
@@ -198,22 +243,28 @@ class DVGOField(nn.Module):
             d = d + noise * self.density_noise
         return self.activate_density(d)
 
-    def query_rgb(self, pts: torch.Tensor,
-                  viewdirs: torch.Tensor) -> torch.Tensor:
-        k0 = grid_sample_3d(self.k0, self.normalize(pts))
-        if self.rgbnet is None:       # coarse: direct colour (dvgo_coarse.py:355)
-            return torch.sigmoid(k0)
+    def query_k0(self, pts: torch.Tensor) -> torch.Tensor:
+        """The k0 features at pts (variants activate them here)."""
+        return grid_sample_3d(self.k0, self.normalize(pts))
+
+    def rgbnet_input(self, k0: torch.Tensor, pts: torch.Tensor,
+                     viewdirs: torch.Tensor) -> torch.Tensor:
+        """[k0, PE(normalised position), PE(view direction)]: what a fine
+        field feeds its rgbnet (dvgo_fine.py:45-54)."""
         feats = [k0]
         if self.posbase_pe:
-            freqs = torch.exp2(torch.arange(self.posbase_pe, device=pts.device,
-                                            dtype=torch.float32))
-            feats.append(position_encoding(self.normalize(pts), freqs))
+            feats.append(frequency_encoding(self.normalize(pts),
+                                            self.posbase_pe))
         if self.viewbase_pe:
-            freqs = torch.exp2(torch.arange(self.viewbase_pe,
-                                            device=pts.device,
-                                            dtype=torch.float32))
-            feats.append(position_encoding(viewdirs, freqs))
-        return torch.sigmoid(self.rgbnet(torch.cat(feats, -1)))
+            feats.append(frequency_encoding(viewdirs, self.viewbase_pe))
+        return torch.cat(feats, -1)
+
+    def query_rgb(self, pts: torch.Tensor,
+                  viewdirs: torch.Tensor) -> torch.Tensor:
+        k0 = self.query_k0(pts)
+        if self.rgbnet is None:       # coarse: direct colour (dvgo_coarse.py:355)
+            return torch.sigmoid(k0)
+        return torch.sigmoid(self.rgbnet(self.rgbnet_input(k0, pts, viewdirs)))
 
     # -- rendering (dvgo_coarse.py:309-366) ------------------------------------
 
@@ -226,26 +277,24 @@ class DVGOField(nn.Module):
         alpha = torch.where(mask_oob, 0.0, self.query_alpha(rays_pts, noise))
         with torch.no_grad():
             weights = alpha * cumprod_exclusive(1.0 - alpha)[..., :-1]
-            sel = weights > self.fast_color_thres
-        rgb = torch.full(rays_pts.shape, 0.5, dtype=torch.float32,
-                         device=rays_pts.device)
-        idx = sel.nonzero(as_tuple=True)
-        vd = viewdirs[idx[0]]
-        rgb = rgb.index_put(idx, self.query_rgb(rays_pts[idx], vd))
-        return alpha, rgb
+        idx = live_index(weights > self.fast_color_thres)
+        rgb = self.query_rgb(rays_pts[idx], viewdirs[idx[0]])
+        return alpha, fill_live(rays_pts.shape, 0.5, idx, rgb)
 
     def render(self, rays_o: torch.Tensor, rays_d: torch.Tensor,
                viewdirs: torch.Tensor, *, near: float, far: float, bg,
                n_samples: int, jitter: Optional[torch.Tensor] = None,
-               noise: Optional[torch.Tensor] = None
+               noise: Optional[torch.Tensor] = None, **draws
                ) -> Dict[str, torch.Tensor]:
         """DVGO's volume render of N rays. jitter [N, 1] and noise [N, S]:
-        the train-time draws (see module docstring)."""
+        the train-time draws (see module docstring); a variant's further
+        draws (draw_spec) go on to its _render_core."""
         rays_pts, mask_oob = sample_ray(
             rays_o, rays_d, near=near, far=far, xyz_min=self.mins,
             xyz_max=self.maxs, voxel_size=self.voxel_size,
             stepsize=self.stepsize, n_samples=n_samples, jitter=jitter)
-        alpha, rgb = self._render_core(rays_pts, mask_oob, viewdirs, noise)
+        alpha, rgb = self._render_core(rays_pts, mask_oob, viewdirs, noise,
+                                       **draws)
         alphainv_cum = cumprod_exclusive(1.0 - alpha)           # [N, S+1]
         weights = alpha * alphainv_cum[..., :-1]
         bg = torch.as_tensor(bg, dtype=torch.float32, device=rays_o.device)

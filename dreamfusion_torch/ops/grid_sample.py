@@ -34,7 +34,9 @@ def grid_sample_3d(grid: torch.Tensor, xyz01: torch.Tensor,
         xyz01 = xyz01.detach()
     x = xyz01.reshape(-1, 3).float().t()                       # [3, B]
     hi = torch.tensor([s - 1.0 for s in sizes], device=x.device)[:, None]
-    pos = torch.minimum(torch.clamp(x * hi, min=0.0), hi)
+    # maximum / minimum, not clamp: at a coordinate on the border they pass
+    # half the position gradient, as jnp.clip does in the JAX package
+    pos = torch.minimum(torch.maximum(x * hi, torch.zeros_like(hi)), hi)
     p0 = torch.floor(pos).detach()
     frac = pos - p0
     p0 = p0.long()

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from dreamfusion_torch.device import resolve_device
+from dreamfusion_torch.models.decoders import BasicMLP, ResMLP
 from dreamfusion_torch.models.dvgo import (DVGOField, dvgo_losses,
                                            sample_ray, scale_volume_grid,
                                            total_variation)
@@ -169,10 +170,12 @@ class DVGOTrainer:
 
     The field's parameters are initialised here from `seed` (density and
     k0 ~ N(0, 1), the rgbnet as flax initialises it), on the CPU and then
-    moved to `device` (default the GPU; the CPU only when asked). Each
-    step draws its ray jitter [N, 1] (and its density noise [N, S] when
-    the field has density_noise > 0) from a generator on the device, unless
-    the caller passes them (``step`` / ``fit``'s ``draws``)."""
+    moved to `device` (default the GPU; the CPU only when asked); a zoo
+    variant's reset_parameters adds its own (OSR's env, V6's zero k0).
+    Each step draws what the field's draw_spec names (the ray jitter [N,
+    1]; the density noise [N, S] when density_noise > 0; FastFFL's corner
+    choice, OSR's shadow jitter) from a generator on the device, unless the
+    caller passes them (``step`` / ``fit``'s ``draws``)."""
 
     def __init__(self, field: DVGOField, stage: DVGOStageConfig, *,
                  near: float, far: float, bg=(1.0, 1.0, 1.0), seed: int = 0,
@@ -192,16 +195,18 @@ class DVGOTrainer:
         self.global_step = 0
 
     def _draws(self, n_rays: int, draws: Optional[Dict]) -> Dict:
-        draws = dict(draws or {})
-        if draws.get("jitter") is None:
-            draws["jitter"] = torch.rand(n_rays, 1, generator=self.generator,
-                                         device=self.device)
-        if self.field.density_noise > 0 and draws.get("noise") is None:
-            draws["noise"] = torch.randn(n_rays, self.n_samples,
-                                         generator=self.generator,
-                                         device=self.device)
-        return {k: (None if v is None else torch.as_tensor(v).to(self.device))
-                for k, v in draws.items()}
+        """The render's draws the field names (DVGOField.draw_spec): those
+        the caller passed, the rest drawn here in the spec's order."""
+        given = draws or {}
+        out = {}
+        for name, (shape, kind) in self.field.draw_spec(
+                n_rays, self.n_samples).items():
+            v = given.get(name)
+            if v is None:
+                draw = torch.rand if kind == "uniform" else torch.randn
+                v = draw(*shape, generator=self.generator, device=self.device)
+            out[name] = torch.as_tensor(v).to(self.device)
+        return out
 
     def _batch(self, batch):
         return tuple(torch.as_tensor(np.asarray(b), dtype=torch.float32)
@@ -216,7 +221,7 @@ class DVGOTrainer:
         d = self._draws(rays_o.shape[0], draws)
         out = field.render(rays_o, rays_d, viewdirs, near=self.near,
                            far=self.far, bg=self.bg, n_samples=self.n_samples,
-                           jitter=d["jitter"], noise=d.get("noise"))
+                           **d)
         loss, logs = dvgo_losses(
             out, target, weight_main=stage.weight_main,
             weight_entropy_last=stage.weight_entropy_last,
@@ -277,7 +282,8 @@ class DVGOTrainer:
     @torch.no_grad()
     def evaluate(self, loader, max_batches: Optional[int] = None) -> float:
         """Mean PSNR over a ray loader (validation/psnr analog); the render
-        draws nothing."""
+        draws nothing (the OSR fields take their normals in a local
+        enable_grad)."""
         total, n = 0.0, 0
         for i, batch in enumerate(loader):
             if max_batches and i >= max_batches:
@@ -323,7 +329,13 @@ def _export_rgbnet(state: Dict, rgbnet: torch.nn.Module) -> None:
     """Inverse of models/kailu.load_dvgo_state for ResMLP / BasicMLP: the
     port's flax-named Linears -> the reference's Sequential indices
     (ResMLP: net.0, net.{2+i}.net, net.{2+n_res}; BasicMLP: dense_i at
-    2 i, dense_out after them)."""
+    2 i, dense_out after them). The layout has no place for another
+    decoder (nor for an OSR field's env): those raise, as the JAX
+    package's writer does."""
+    if not isinstance(rgbnet, (ResMLP, BasicMLP)):
+        raise ValueError(f"the .dvgo layout holds a ResMLP or a BasicMLP "
+                         f"rgbnet, not {type(rgbnet).__name__}")
+
     def put(key, lin):
         state[f"rgbnet.net.{key}.weight"] = lin.weight.detach().cpu().clone()
         state[f"rgbnet.net.{key}.bias"] = lin.bias.detach().cpu().clone()
