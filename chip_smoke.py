@@ -289,6 +289,23 @@ O2_TRAIN_KERNELS = ("grid_encoder_bwd", "attention_fwd", "attention_bwd")
 HASHGRID_POINTS = 524_288          # 4,096 rays x K = 128 samples
 
 
+def _recorded(fn):
+    """fn() with dreamfusion_torch.trace's recorder on -> (what fn
+    returned, {span name: host ms} of the spans it entered)."""
+    from dreamfusion_torch import trace
+
+    trace.reset()
+    trace.enable()
+    try:
+        out = fn()
+    finally:
+        trace.disable()
+    ms = {k: v["host_ns"] * 1e-6 for k, v in trace.table().items()
+          if v["calls"]}
+    trace.reset()
+    return out, ms
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -919,16 +936,16 @@ def phase_options(guidance=None, steps: int = 10, warmup: int = 2,
         shaded, groups = _fallback_groups(trainer, o, d)
         trainer._render_orbit_frame(0, size, H, W)      # warm
         kcuda.reset_counts()
-        timings = {}
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        frame = trainer._render_orbit_frame(1, size, H, W, timings=timings)
+        frame, timings = _recorded(
+            lambda: trainer._render_orbit_frame(1, size, H, W))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         ecounts = dict(kcuda.launch_counts)
         log(f"[options] {H}x{W} orbit frame 1 through the fallback: "
-            f"{wall:.3f} s ({1 / wall:.4f} frames/s); stages (ms) "
-            + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in timings.items())
+            f"{wall:.3f} s ({1 / wall:.4f} frames/s); spans (host ms) "
+            + ", ".join(f"{k} {v:.1f}" for k, v in timings.items())
             + f"; {groups} groups, {shaded} with an emit; kernels "
             f"{json.dumps(ecounts)}")
         if (ecounts["march_cone"] != groups
@@ -1104,13 +1121,15 @@ def phase_eval(trainer, frames: int = 3):
     warm = time.perf_counter() - t0
     walls, stages, outs, shaded = [], [], [], []
     for i in range(1, frames + 1):
-        timings, before = {}, dict(kcuda.launch_counts)
+        before = dict(kcuda.launch_counts)
         t1 = time.perf_counter()
-        outs.append(trainer._render_orbit_frame(i, size, H, W,
-                                                timings=timings))
+        out, timings = _recorded(
+            lambda: trainer._render_orbit_frame(i, size, H, W))
+        outs.append(out)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t1)
-        stages.append(timings)
+        stages.append({k: v * 1e-3 for k, v in timings.items()
+                       if k.startswith("eval/")})
         # each shaded group launches kernel C (compact) or B-fwd (dense)
         shaded.append(tuple(kcuda.launch_counts[k] - before[k]
                             for k in ("composite_compact", "composite_fwd")))
@@ -1121,12 +1140,14 @@ def phase_eval(trainer, frames: int = 3):
         f"{frames / dt:.4f} ({dt / frames * 1e3:.2f} ms a frame; frames "
         f"{ms(walls)} ms)")
     for name in stages[0]:
-        vals = [s[name] for s in stages]
-        log(f"[eval] stage {name}, synced wall over frames 1..{frames}: "
+        vals = [s.get(name, 0.0) for s in stages]
+        log(f"[eval] stage {name}, host time over frames 1..{frames}: "
             f"mean {sum(vals) / frames * 1e3:.2f} ms (frames {ms(vals)})")
-    log(f"[eval] stage walls summed per frame {ms(sum(s.values()) for s in stages)}"
-        f" ms; the rest of each frame's wall (its rays, the host between "
-        f"stages) {ms(w - sum(s.values()) for w, s in zip(walls, stages))} ms")
+    log(f"[eval] stages' host time summed per frame "
+        f"{ms(sum(s.values()) for s in stages)} ms; the rest of each "
+        f"frame's wall (its rays, the host between stages, the device "
+        f"after the last launch) "
+        f"{ms(w - sum(s.values()) for w, s in zip(walls, stages))} ms")
     log("[eval] groups shaded per frame, compact (C) + dense (B-fwd): "
         + ", ".join(f"{c} + {b}" for c, b in shaded))
     log(f"[eval] kernels {json.dumps(counts)}")
@@ -1433,16 +1454,17 @@ def phase_edit(guidance=None, steps: int = 10, warmup: int = 2):
         kcuda.reset_counts()
         trainer._render_orbit_frame(0, size, H, W)
         torch.cuda.synchronize()
-        timings = {}
         t2 = time.perf_counter()
         with compact_groups() as groups:
-            out = trainer._render_orbit_frame(1, size, H, W, timings=timings)
+            out, timings = _recorded(
+                lambda: trainer._render_orbit_frame(1, size, H, W))
             torch.cuda.synchronize()
         wall = time.perf_counter() - t2
         ecounts = dict(kcuda.launch_counts)
-        log(f"[edit] {H}x{W} staged eval frame 1: {wall * 1e3:.2f} ms ("
-            + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in timings.items())
-            + f" ms); {groups['calls']} compact groups, "
+        log(f"[edit] {H}x{W} staged eval frame 1: {wall * 1e3:.2f} ms (spans,"
+            " host ms: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in timings.items())
+            + f"); {groups['calls']} compact groups, "
             f"{groups['launches']} composite_compact launches")
         _profiled(lambda: trainer._render_orbit_frame(1, size, H, W), 1,
                   "edit frame", ("eval/",))
@@ -1629,15 +1651,17 @@ def phase_o2(guidance=None, steps: int = 10, warmup: int = 2,
 
         H, W, size = cfg.H, cfg.W, cfg.test_size
         kcuda.reset_counts()
-        timings = {}
         t1 = time.perf_counter()
-        out = trainer._render_orbit_frame(1, size, H, W, timings=timings)
+        out, timings = _recorded(
+            lambda: trainer._render_orbit_frame(1, size, H, W))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         ecounts = dict(kcuda.launch_counts)
         log(f"[o2] {H}x{W} orbit frame 1 ({-(-H * W // cfg.max_ray_batch)} "
             f"chunks of {cfg.max_ray_batch} rays): {wall:.3f} s, "
-            f"{1 / wall:.4f} frames/s; pixels with weights_sum > 0.5: "
+            f"{1 / wall:.4f} frames/s; spans (host ms) "
+            + ", ".join(f"{k} {v:.1f}" for k, v in timings.items())
+            + "; pixels with weights_sum > 0.5: "
             f"{int((out['weights_sum'] > 0.5).sum())}; kernels "
             f"{json.dumps(ecounts)}")
         if out["image"].shape != (H, W, 3) or not all(
@@ -3702,17 +3726,35 @@ def phase_kernels(trainer, counts, captured=None, o2_trainer=None,
 def _profiled(fn, reps: int, label: str, spans, top: int = 15):
     """torch.profiler over reps calls of fn: device time per span (names
     starting with one of spans) and per kernel (the `top` largest), the
-    busy share and the device launches per call."""
+    busy share and the device launches per call; and, with the recorder
+    on, the device time launched under each of its spans (autograd's
+    thread included) and the syncs per span."""
     from torch.profiler import ProfilerActivity, profile
 
+    from dreamfusion_torch import trace
+
     torch.cuda.synchronize()
+    trace.reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
+        trace.enable()
+        try:
+            for _ in range(reps):
+                fn()
+        finally:
+            trace.disable()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    launched = trace.launched_by_span(
+        prof.events(), prof.profiler.kineto_results.trace_start_ns())
+    recorded = trace.table()
+    trace.reset()
+    for name, sec in sorted(launched.items(), key=lambda kv: -kv[1]):
+        row = recorded.get(name, {})
+        log(f"[profile] recorder span {name}: device time launched "
+            f"{sec * 1e3 / reps:.2f} ms/{label}, syncs "
+            f"{row.get('syncs', 0) / reps:.2f}/{label}")
     events = prof.key_averages()
 
     def dev_self(e):

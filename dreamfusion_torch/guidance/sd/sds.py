@@ -6,7 +6,9 @@ dreamfusion_tpu/guidance/sd/sds.py).
 so d(loss)/d(latents) = w (eps_hat - eps), the reference's
 latents.backward(gradient=...) (nerf/sd.py:74-118). Per step: bilinear
 resize to 512^2 -> VAE encode (with grad) * 0.18215 -> t ~ U{20..980} ->
-add noise -> UNet with CFG (no grad) -> w = 1 - alphas_cumprod[t].
+add noise -> UNet with CFG (no grad) -> w = 1 - alphas_cumprod[t]. The
+encode and the CFG forward run under the spans step/guidance/vae_encode
+and step/guidance/unet (dreamfusion_torch.trace).
 
 ``build_sd_guidance`` builds random models or loads a local diffusers SD
 directory with its text encoder (``build_guidance`` finds a mounted one
@@ -23,6 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dreamfusion_torch import trace
 from dreamfusion_torch.device import resolve_device
 from dreamfusion_torch.guidance import Guidance
 from dreamfusion_torch.guidance.sd.layers import GroupNorm
@@ -51,11 +54,12 @@ def sds_loss(unet: UNet2DCondition, vae: AutoencoderKL,
     B = pred_rgb.shape[0]
     dev = pred_rgb.device
     size = latent_size * 8
-    img = F.interpolate(pred_rgb.permute(0, 3, 1, 2), size=(size, size),
-                        mode="bilinear", align_corners=False)
-    latents = vae.encode(2.0 * img.permute(0, 2, 3, 1) - 1.0,
-                         eps=draws.get("vae_eps"),
-                         generator=generator) * LATENT_SCALE
+    with trace.span("step/guidance/vae_encode"):
+        img = F.interpolate(pred_rgb.permute(0, 3, 1, 2), size=(size, size),
+                            mode="bilinear", align_corners=False)
+        latents = vae.encode(2.0 * img.permute(0, 2, 3, 1) - 1.0,
+                             eps=draws.get("vae_eps"),
+                             generator=generator) * LATENT_SCALE
     t = draws.get("t")
     if t is None:
         t = torch.randint(min_step, max_step + 1, (B,), generator=generator,
@@ -64,7 +68,7 @@ def sds_loss(unet: UNet2DCondition, vae: AutoencoderKL,
     if noise is None:
         noise = torch.randn(latents.shape, generator=generator, device=dev)
     t = t.to(dev).long()
-    with torch.no_grad():
+    with torch.no_grad(), trace.span("step/guidance/unet"):
         latents_noisy = add_noise(sched, latents.detach(), noise, t)
         eps = unet(torch.cat([latents_noisy, latents_noisy]),
                    torch.cat([t, t]),

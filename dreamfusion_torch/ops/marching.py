@@ -15,7 +15,10 @@ nerf/renderer.py:446-613).
   keeps floor(count * M / total) samples (the JAX truncation semantics).
 - ``render_grid`` / ``shade_march``: field query, fused compositing
   (ops/fused_composite.py, kernels B-fwd/B-bwd on the GPU), background,
-  orient loss and the count statistics the trainer's K/M pickers read.
+  orient loss and the count statistics the trainer's K/M pickers read;
+  under the recorder's spans render/march, render/field (the field
+  queries with their finite-difference normals) and render/composite
+  (dreamfusion_torch.trace), kept out of torch.profiler's trace.
 - ``composite_compact``: the staged eval's compositor on the compact buffer
   (kernel C on the GPU).
 
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dreamfusion_torch import trace
 from dreamfusion_torch.cameras import safe_normalize
 from dreamfusion_torch.device import resolve_device
 from dreamfusion_torch.ops import cuda, fused_composite, probe
@@ -622,10 +626,11 @@ def render_grid(fns, grid_state: GridState, rays_o, rays_d, *,
         if light_n is None:
             light_n = torch.randn(3, generator=generator, device=dev)
         light_d = safe_normalize(rays_o[0] + light_n)
-    march = march_rays(grid_state.occ, rays_o.detach(), rays_d.detach(),
-                       nears, fars, bound=bound, max_steps=max_steps, K=K,
-                       dt_gamma=dt_gamma, perturb=perturb, generator=generator,
-                       perturb_u=perturb_u)
+    with trace.span("render/march", profile=False):
+        march = march_rays(grid_state.occ, rays_o.detach(), rays_d.detach(),
+                           nears, fars, bound=bound, max_steps=max_steps,
+                           K=K, dt_gamma=dt_gamma, perturb=perturb,
+                           generator=generator, perturb_u=perturb_u)
     return shade_march(fns, march, rays_o, rays_d, nears, fars, K=K,
                        bound=bound, light_d=light_d,
                        ambient_ratio=ambient_ratio, shading_code=shading_code,
@@ -654,102 +659,111 @@ def shade_march(fns, march: MarchOut, rays_o, rays_d, nears, fars, *, K: int,
     if K < march.ts.shape[1]:
         march = MarchOut(march.ts[:, :K], march.dts[:, :K],
                          march.valid[:, :K], march.counts)
-    valid_f = march.valid.float()
-    xyzs = torch.clamp(rays_o[:, None, :] + rays_d[:, None, :] * march.ts[..., None],
-                       -bound, bound)
-    dirs = rays_d[:, None, :].expand(xyzs.shape)
-
     cmap = None
-    live_counts = None
-    if compact_M is not None and compact_M < N * K:
-        cmap = make_compact_map(march.counts, K, compact_M)
-        t_c = march.ts.reshape(-1)[cmap.fwd_flat]
-        o_c = rays_o[cmap.ray_of_m]
-        d_c = rays_d[cmap.ray_of_m]
-        xyz_c = torch.clamp(o_c + d_c * t_c[:, None], -bound, bound)
-        sigma_c, color_c, normal_c = fns.field(xyz_c, d_c, light_d,
-                                               ambient_ratio, shading_code)
-        sigma_c = torch.where(cmap.valid_m, sigma_c, torch.zeros_like(sigma_c))
-        if compact_composite:
-            if compute_normal_losses:
-                raise ValueError("compact_composite is the forward-only eval "
-                                 "path; it computes no normal losses")
+    compact = compact_M is not None and compact_M < N * K
+    if compact and compact_composite and compute_normal_losses:
+        raise ValueError("compact_composite is the forward-only eval path; "
+                         "it computes no normal losses")
+    with trace.span("render/field", profile=False):
+        valid_f = march.valid.float()
+        xyzs = torch.clamp(rays_o[:, None, :]
+                           + rays_d[:, None, :] * march.ts[..., None],
+                           -bound, bound)
+        dirs = rays_d[:, None, :].expand(xyzs.shape)
+        if compact:
+            cmap = make_compact_map(march.counts, K, compact_M)
+            t_c = march.ts.reshape(-1)[cmap.fwd_flat]
+            o_c = rays_o[cmap.ray_of_m]
+            d_c = rays_d[cmap.ray_of_m]
+            xyz_c = torch.clamp(o_c + d_c * t_c[:, None], -bound, bound)
+            sigma_c, color_c, normal_c = fns.field(xyz_c, d_c, light_d,
+                                                   ambient_ratio, shading_code)
+            sigma_c = torch.where(cmap.valid_m, sigma_c,
+                                  torch.zeros_like(sigma_c))
+            if not compact_composite:
+                sigma = compact_expand(sigma_c, cmap) * valid_f
+                color = compact_expand(color_c, cmap)
+                kept = cmap.pos < compact_M
+                dts = march.dts * (march.valid & kept).float()
+        else:
+            sigma, color, normal = fns.field(xyzs.reshape(-1, 3),
+                                             dirs.reshape(-1, 3), light_d,
+                                             ambient_ratio, shading_code)
+            sigma = sigma.reshape(N, K) * valid_f
+            color = color.reshape(N, K, 3)
+            dts = march.dts * valid_f
+
+    with trace.span("render/composite", profile=False):
+        if compact and compact_composite:
             dt_c = march.dts.reshape(-1)[cmap.fwd_flat]
             rgb, ws, depth_sum, live_counts = composite_compact(
                 sigma_c, color_c, t_c, dt_c, cmap, N, T_thresh)
             out = CompositeOut(weights=None, weights_sum=ws, depth=depth_sum,
                                rgb=rgb)
         else:
-            sigma = compact_expand(sigma_c, cmap) * valid_f
-            color = compact_expand(color_c, cmap)
-            kept = cmap.pos < compact_M
-            dts = march.dts * (march.valid & kept).float()
-    else:
-        sigma, color, normal = fns.field(xyzs.reshape(-1, 3),
-                                         dirs.reshape(-1, 3), light_d,
-                                         ambient_ratio, shading_code)
-        sigma = sigma.reshape(N, K) * valid_f
-        color = color.reshape(N, K, 3)
-        dts = march.dts * valid_f
-
-    if live_counts is None:
-        fused = composite_fused(sigma, color, dts, march.ts, T_thresh)
-        out = CompositeOut(weights=None, weights_sum=fused.weights_sum,
-                           depth=fused.depth, rgb=fused.rgb)
-        # unmasked transmittance of the detached densities: the orient
-        # loss's weights and the live count (marching.py:966-1018)
-        with torch.no_grad():
-            alphas_sg = 1.0 - torch.exp(-sigma.detach() * dts)
-            trans_sg = torch.cumprod(torch.cat(
-                [torch.ones(N, 1, device=sigma.device),
-                 1.0 - alphas_sg + 1e-15], 1), 1)[:, :-1]
-            live_counts = (march.valid & (trans_sg > T_thresh)).sum(1).float()
+            fused = composite_fused(sigma, color, dts, march.ts, T_thresh)
+            out = CompositeOut(weights=None, weights_sum=fused.weights_sum,
+                               depth=fused.depth, rgb=fused.rgb)
+            # unmasked transmittance of the detached densities: the orient
+            # loss's weights and the live count (marching.py:966-1018)
+            with torch.no_grad():
+                alphas_sg = 1.0 - torch.exp(-sigma.detach() * dts)
+                trans_sg = torch.cumprod(torch.cat(
+                    [torch.ones(N, 1, device=sigma.device),
+                     1.0 - alphas_sg + 1e-15], 1), 1)[:, :-1]
+                live_counts = (march.valid & (trans_sg > T_thresh)
+                               ).sum(1).float()
 
     results: Dict[str, torch.Tensor] = {}
     if compute_normal_losses:
-        normal = (compact_expand(normal_c, cmap) if cmap is not None
-                  else normal.reshape(N, K, 3))
-        w_sg = alphas_sg * trans_sg * valid_f
-        loss_orient = w_sg * torch.clamp((normal * dirs).sum(-1), min=0.0) ** 2
-        results["loss_orient"] = loss_orient.sum(-1).mean()
-        if fns.normal is not None:
-            if cmap is not None:
-                if smooth_n is None:
-                    smooth_n = torch.randn(xyz_c.shape, generator=generator,
-                                           device=xyz_c.device)
-                np_c = fns.normal(xyz_c + smooth_n * 1e-2)
-                diff = torch.where(cmap.valid_m[:, None], normal_c - np_c,
-                                   torch.zeros_like(np_c)).abs()
-                n_valid = torch.clamp(cmap.valid_m.sum(), min=1)
-                results["loss_smooth"] = diff.sum() / (3.0 * n_valid)
-            else:
-                if smooth_n is None:
-                    smooth_n = torch.randn(xyzs.shape, generator=generator,
-                                           device=xyzs.device)
-                normal_p = fns.normal((xyzs + smooth_n * 1e-2).reshape(-1, 3))
-                results["loss_smooth"] = (normal - normal_p.reshape(N, K, 3)
-                                          ).abs().mean()
+        with trace.span("render/field", profile=False):
+            normal = (compact_expand(normal_c, cmap) if cmap is not None
+                      else normal.reshape(N, K, 3))
+            w_sg = alphas_sg * trans_sg * valid_f
+            loss_orient = w_sg * torch.clamp((normal * dirs).sum(-1),
+                                             min=0.0) ** 2
+            results["loss_orient"] = loss_orient.sum(-1).mean()
+            if fns.normal is not None:
+                if cmap is not None:
+                    if smooth_n is None:
+                        smooth_n = torch.randn(xyz_c.shape,
+                                               generator=generator,
+                                               device=xyz_c.device)
+                    np_c = fns.normal(xyz_c + smooth_n * 1e-2)
+                    diff = torch.where(cmap.valid_m[:, None], normal_c - np_c,
+                                       torch.zeros_like(np_c)).abs()
+                    n_valid = torch.clamp(cmap.valid_m.sum(), min=1)
+                    results["loss_smooth"] = diff.sum() / (3.0 * n_valid)
+                else:
+                    if smooth_n is None:
+                        smooth_n = torch.randn(xyzs.shape, generator=generator,
+                                               device=xyzs.device)
+                    normal_p = fns.normal((xyzs + smooth_n * 1e-2)
+                                          .reshape(-1, 3))
+                    results["loss_smooth"] = (
+                        normal - normal_p.reshape(N, K, 3)).abs().mean()
 
-    if bg_radius > 0 and fns.background is not None:
-        bg = fns.background(rays_d)
-    elif bg_color is not None:
-        bg = bg_color
-    else:
-        bg = torch.ones(N, 3, device=rays_o.device)
-    image = out.rgb + (1.0 - out.weights_sum)[:, None] * bg
-    depth = torch.clamp(out.depth - nears, min=0.0) / torch.clamp(
-        fars - nears, min=1e-6)
+    with trace.span("render/composite", profile=False):
+        if bg_radius > 0 and fns.background is not None:
+            bg = fns.background(rays_d)
+        elif bg_color is not None:
+            bg = bg_color
+        else:
+            bg = torch.ones(N, 3, device=rays_o.device)
+        image = out.rgb + (1.0 - out.weights_sum)[:, None] * bg
+        depth = torch.clamp(out.depth - nears, min=0.0) / torch.clamp(
+            fars - nears, min=1e-6)
 
-    counts = march.counts.float()
-    results.update({
-        "image": image,
-        "depth": depth,
-        "weights_sum": out.weights_sum,
-        "mask": nears < fars,
-        "mean_count": counts.mean(),
-        "count_q95": torch.quantile(counts, 0.95),
-        "live_q95": torch.quantile(live_counts, 0.95),
-        "n_field_samples": torch.tensor(
-            cmap.fwd_flat.shape[0] if cmap is not None else N * K),
-    })
+        counts = march.counts.float()
+        results.update({
+            "image": image,
+            "depth": depth,
+            "weights_sum": out.weights_sum,
+            "mask": nears < fars,
+            "mean_count": counts.mean(),
+            "count_q95": torch.quantile(counts, 0.95),
+            "live_q95": torch.quantile(live_counts, 0.95),
+            "n_field_samples": torch.tensor(
+                cmap.fwd_flat.shape[0] if cmap is not None else N * K),
+        })
     return results

@@ -19,6 +19,11 @@ The optimizer is written out (``GroupAdam``): optax's Adam (0.9, 0.999,
 no state (optax ``set_to_zero``). torch.optim.Adam cannot scale the update
 per voxel.
 
+A step runs under the spans step/render (its draws and the render),
+step/loss (the losses and TV), step/backward and step/optimizer
+(``GroupAdam.step``), the names of the SDS Trainer's step
+(dreamfusion_torch.trace); their id counts the trainer's steps.
+
 Checkpoints are torch.save files in the lightning state_dict layout, the
 file the JAX package writes: the editing field (models/kailu.py) and the
 JAX package's ``peek_dvgo_checkpoint`` / ``load_dvgo_state_into_params``
@@ -33,6 +38,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from dreamfusion_torch import trace
 from dreamfusion_torch.device import resolve_device
 from dreamfusion_torch.models.decoders import BasicMLP, ResMLP
 from dreamfusion_torch.models.dvgo import (DVGOField, dvgo_losses,
@@ -193,6 +199,7 @@ class DVGOTrainer:
         self.pervoxel_factors = pervoxel_factors
         self.opt = GroupAdam(stage, pervoxel_factors)
         self.global_step = 0
+        self.step_calls = 0       # the spans' id (fit alone moves global_step)
 
     def _draws(self, n_rays: int, draws: Optional[Dict]) -> Dict:
         """The render's draws the field names (DVGOField.draw_spec): those
@@ -217,24 +224,30 @@ class DVGOTrainer:
         """One training step on (rays_d, rays_o, viewdirs, target).
         Returns the logs (detached tensors; per_ray_err [N] among them)."""
         field, stage = self.field, self.stage
+        trace.set_id(self.step_calls)
+        self.step_calls += 1
         rays_d, rays_o, viewdirs, target = self._batch(batch)
-        d = self._draws(rays_o.shape[0], draws)
-        out = field.render(rays_o, rays_d, viewdirs, near=self.near,
-                           far=self.far, bg=self.bg, n_samples=self.n_samples,
-                           **d)
-        loss, logs = dvgo_losses(
-            out, target, weight_main=stage.weight_main,
-            weight_entropy_last=stage.weight_entropy_last,
-            weight_rgbper=stage.weight_rgbper,
-            entropy_weight=stage.entropy_weight)
-        if stage.weight_tv_density > 0:
-            loss = loss + stage.weight_tv_density * total_variation(
-                field.activate_density(field.density))
-        if stage.weight_tv_k0 > 0:
-            loss = loss + stage.weight_tv_k0 * total_variation(field.k0)
+        with trace.span("step/render"):
+            d = self._draws(rays_o.shape[0], draws)
+            out = field.render(rays_o, rays_d, viewdirs, near=self.near,
+                               far=self.far, bg=self.bg,
+                               n_samples=self.n_samples, **d)
+        with trace.span("step/loss"):
+            loss, logs = dvgo_losses(
+                out, target, weight_main=stage.weight_main,
+                weight_entropy_last=stage.weight_entropy_last,
+                weight_rgbper=stage.weight_rgbper,
+                entropy_weight=stage.entropy_weight)
+            if stage.weight_tv_density > 0:
+                loss = loss + stage.weight_tv_density * total_variation(
+                    field.activate_density(field.density))
+            if stage.weight_tv_k0 > 0:
+                loss = loss + stage.weight_tv_k0 * total_variation(field.k0)
         field.zero_grad(set_to_none=True)
-        loss.backward()
-        self.opt.step(field)
+        with trace.span("step/backward"):
+            loss.backward()
+        with trace.span("step/optimizer"):
+            self.opt.step(field)
         with torch.no_grad():
             logs = {k: v.detach() for k, v in logs.items()}
             logs["psnr"] = psnr(out["rgb_marched"], target)

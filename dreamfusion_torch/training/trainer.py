@@ -30,17 +30,15 @@ pasted into the frame by ray index.
 ``Trainer.reset_weights`` restarts the asset (the GUI's reset) and
 ``Trainer.save_mesh`` exports it as a textured mesh (export/mesh.py).
 
-The step's parts run under ``torch.profiler.record_function`` spans
+The step's parts run under ``dreamfusion_torch.trace`` spans
 (step/cameras, step/render, step/guidance, step/backward, step/optimizer,
-grid_refresh), the eval frame's under eval/classify, eval/bg, eval/march,
-eval/shade and eval/finish; chip_smoke.py's profile phase reads their
-device time. Outside a profiler a span costs a few microseconds of host
-time.
+grid_refresh; their id the step), the eval frame's under eval/classify,
+eval/bg, eval/march, eval/shade and eval/finish (their id the frame); the
+benchmark's traced runs and chip_smoke.py's profile phase read them.
 """
 
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import struct
@@ -50,9 +48,8 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
-from dreamfusion_torch import cameras
+from dreamfusion_torch import cameras, trace
 from dreamfusion_torch.config import Config
 from dreamfusion_torch.device import resolve_device
 from dreamfusion_torch.guidance import Guidance, build_guidance
@@ -123,7 +120,7 @@ def make_grads_fn(cfg: Config, model: _BaseNeRF, guidance: Guidance,
                  host_generator: Optional[torch.Generator] = None):
         draws = draws or {}
         dev = text_z.device
-        with record_function("step/cameras"):
+        with trace.span("step/cameras"):
             batch = cameras.sample_train_batch(cfg, generator=generator,
                                                device=dev, draws=draws)
         B, N = cfg.batch_size, cfg.h * cfg.w
@@ -140,7 +137,7 @@ def make_grads_fn(cfg: Config, model: _BaseNeRF, guidance: Guidance,
         fns = make_field_fns(model)
         if not compute_smooth:
             fns = fns._replace(normal=None)
-        with record_function("step/render"):
+        with trace.span("step/render"):
             kw = dict(bound=cfg.bound, min_near=cfg.min_near,
                       bg_radius=cfg.bg_radius, ambient_ratio=ratio,
                       shading_code=code, bg_color=bg_color, perturb=True,
@@ -166,7 +163,7 @@ def make_grads_fn(cfg: Config, model: _BaseNeRF, guidance: Guidance,
         else:
             tz = text_z[:1].expand((B,) + text_z.shape[1:])
         sds_draws = {k: draws[k] for k in SDS_DRAWS if k in draws}
-        with record_function("step/guidance"):
+        with trace.span("step/guidance"):
             g_loss = guidance.loss(tz, pred_rgb, sds_draws, generator)
 
         loss = g_loss
@@ -194,7 +191,7 @@ def make_grads_fn(cfg: Config, model: _BaseNeRF, guidance: Guidance,
 
         for p in model.parameters():
             p.grad = None
-        with record_function("step/backward"):
+        with trace.span("step/backward"):
             # on the editing field (frozen density) a loss can reach no
             # trainable parameter: without guidance, or on a textureless
             # step without a background net. All gradients are zero then
@@ -215,20 +212,6 @@ def make_grads_fn(cfg: Config, model: _BaseNeRF, guidance: Guidance,
 # optical-depth budget of the staged eval's live estimate: -ln(1e-4) times
 # the JAX default margin 1.2 (trainer.py:521-536)
 _LIVE_LOGT = 1.2 * 9.2103
-
-
-@contextlib.contextmanager
-def _stage(name: str, timings: Optional[Dict[str, float]],
-           device: torch.device):
-    """A record_function span eval/<name>; with a timings dict the stage
-    also ends in a device sync and adds its wall seconds there."""
-    with record_function(f"eval/{name}"):
-        t0 = time.perf_counter()
-        yield
-        if timings is not None:
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
 
 
 def make_staged_grid_eval(cfg: Config, model: _BaseNeRF, H: int,
@@ -266,9 +249,10 @@ def make_staged_grid_eval(cfg: Config, model: _BaseNeRF, H: int,
     frame whose H W is not a multiple of it is padded with rays that miss
     the box. cfg.aabb_infer (the GUI's box), when set, replaces +-bound as
     the rays' box. Returns render_frame(rays_o, rays_d, grid_state,
-    shading_code=albedo, ambient_ratio=1.0, bg_color=None, light_d=None,
-    timings=None) -> {"image" [H,W,3], "depth" [H,W], "weights_sum" [H,W]}.
-    A timings dict receives each stage's synced wall seconds."""
+    shading_code=albedo, ambient_ratio=1.0, bg_color=None, light_d=None)
+    -> {"image" [H,W,3], "depth" [H,W], "weights_sum" [H,W]}; its stages
+    run under the spans eval/classify, eval/bg, eval/march, eval/shade and
+    eval/finish."""
     group = cfg.max_ray_batch
     fns = make_field_fns(model, table_bf16=cfg.eval_table_bf16)._replace(
         normal=None)
@@ -350,8 +334,7 @@ def make_staged_grid_eval(cfg: Config, model: _BaseNeRF, H: int,
     @torch.no_grad()
     def render_frame(rays_o, rays_d, grid_state: GridState,
                      shading_code: int = SHADING_ALBEDO,
-                     ambient_ratio: float = 1.0, bg_color=None, light_d=None,
-                     timings: Optional[Dict[str, float]] = None):
+                     ambient_ratio: float = 1.0, bg_color=None, light_d=None):
         dev = rays_o.device
         N = H * W
         Np = N + (-N) % group
@@ -361,9 +344,9 @@ def make_staged_grid_eval(cfg: Config, model: _BaseNeRF, H: int,
         o = torch.cat([rays_o, rays_o.new_zeros(Np - N, 3)])
         d = torch.cat([rays_d, rays_d.new_ones(Np - N, 3) / 3 ** 0.5])
         if not cone:
-            with _stage("classify", timings, dev):
+            with trace.span("eval/classify"):
                 perm, t_lo, gstats = classify(grid_state.occ, o, d, aabb)
-        with _stage("bg", timings, dev):
+        with trace.span("eval/bg"):
             if cfg.bg_radius > 0:
                 image = model.background(d)
             elif bg_color is not None:
@@ -379,10 +362,10 @@ def make_staged_grid_eval(cfg: Config, model: _BaseNeRF, H: int,
                   ambient_ratio=ambient_ratio, shading_code=shading_code,
                   bg_radius=cfg.bg_radius, bg_color=bg)
         if cone:
-            with _stage("march", timings, dev):
+            with trace.span("eval/march"):
                 m, nears, fars, perm, gmax = march_all(grid_state.occ, o, d,
                                                        aabb)
-            with _stage("shade", timings, dev):
+            with trace.span("eval/shade"):
                 for g in range(gmax.shape[0]):
                     if gmax[g] == 0:
                         continue               # the background alone
@@ -396,9 +379,9 @@ def make_staged_grid_eval(cfg: Config, model: _BaseNeRF, H: int,
                     image[ridx] = out["image"]
                     depth[ridx] = out["depth"]
                     ws[ridx] = out["weights_sum"]
-            return finish(image, depth, ws, timings, dev)
+            return finish(image, depth, ws)
         marched = []
-        with _stage("march", timings, dev):
+        with trace.span("eval/march"):
             for g in reversed(range(gstats.shape[0])):
                 if gstats[g, 0] == 0.0:
                     break                      # sorted: the rest is empty
@@ -411,7 +394,7 @@ def make_staged_grid_eval(cfg: Config, model: _BaseNeRF, H: int,
                 marched.append((ridx, o_g, d_g, m, nears, fars, st))
             stats = (torch.stack([x[-1] for x in marched]).cpu().tolist()
                      if marched else [])
-        with _stage("shade", timings, dev):
+        with trace.span("eval/shade"):
             for (ridx, o_g, d_g, m, nears, fars, _), (glive, gcount, ltot) \
                     in zip(marched, stats):
                 if gcount == 0.0:
@@ -429,11 +412,11 @@ def make_staged_grid_eval(cfg: Config, model: _BaseNeRF, H: int,
                 image[ridx] = out["image"]
                 depth[ridx] = out["depth"]
                 ws[ridx] = out["weights_sum"]
-        return finish(image, depth, ws, timings, dev)
+        return finish(image, depth, ws)
 
-    def finish(image, depth, ws, timings, dev):
+    def finish(image, depth, ws):
         N = H * W
-        with _stage("finish", timings, dev):
+        with trace.span("eval/finish"):
             return {"image": image[:N].reshape(H, W, 3),
                     "depth": depth[:N].reshape(H, W),
                     "weights_sum": ws[:N].reshape(H, W)}
@@ -459,7 +442,7 @@ def make_eval_render(cfg: Config, model: _BaseNeRF, H: int, W: int,
     are then ignored. The grid renderer's rays take cfg.aabb_infer as
     their box when it is set; the stratified renderer keeps +-bound, as in
     the JAX package. Returns render_frame with make_staged_grid_eval's
-    signature (timings receives the frame's synced wall as "render")."""
+    signature; the frame runs under the span eval/render."""
     n = dp.world_size if dp is not None else 1
     if cfg.grid_ray and n == 1:
         return make_staged_grid_eval(cfg, model, H, W)
@@ -469,8 +452,7 @@ def make_eval_render(cfg: Config, model: _BaseNeRF, H: int, W: int,
     @torch.no_grad()
     def render_frame(rays_o, rays_d, grid_state=None,
                      shading_code: int = SHADING_ALBEDO,
-                     ambient_ratio: float = 1.0, bg_color=None, light_d=None,
-                     timings: Optional[Dict[str, float]] = None):
+                     ambient_ratio: float = 1.0, bg_color=None, light_d=None):
         dev = rays_o.device
         if n > 1:
             shading_code, ambient_ratio = SHADING_ALBEDO, 1.0
@@ -502,7 +484,7 @@ def make_eval_render(cfg: Config, model: _BaseNeRF, H: int, W: int,
 
         if n > 1:
             render_rays = sharding.shard_rays_render(render_rays, dp)
-        with _stage("render", timings, dev):
+        with trace.span("eval/render"):
             out = render_rays(rays_o, rays_d)
         return {"image": out["image"].reshape(H, W, 3),
                 "depth": out["depth"].reshape(H, W),
@@ -686,7 +668,7 @@ class Trainer:
                     jitter: Optional[torch.Tensor] = None) -> GridState:
         """One occupancy refresh (full for the first 4, then quarters); under
         data parallelism rank 0's, broadcast to the other ranks."""
-        with record_function("grid_refresh"):
+        with trace.span("grid_refresh"):
             if self.rank == 0:
                 self.grid_state = update_grid(
                     self.model.density, self.grid_state,
@@ -702,7 +684,9 @@ class Trainer:
 
     def train_step(self, draws: Optional[Dict[str, Any]] = None
                    ) -> Dict[str, Any]:
-        """One optimizer step at the current (K, M) budgets."""
+        """One optimizer step at the current (K, M) budgets (its spans'
+        id: the step)."""
+        trace.set_id(self.step)
         grads_fn = make_grads_fn(self.cfg, self.model, self.guidance,
                                  grid_K=self._cur_grid_K,
                                  compact_M=self._cur_compact_M)
@@ -712,7 +696,7 @@ class Trainer:
         loss, metrics = grads_fn(self.step, self.text_z, self.grid_state,
                                  draws=draws, generator=self.step_gen,
                                  host_generator=self.step_host_gen)
-        with record_function("step/optimizer"):
+        with trace.span("step/optimizer"):
             self.opt.step()
             self.lr_sched.step()
             if self.ema is not None:
@@ -796,14 +780,14 @@ class Trainer:
                 self.cfg, self.model, H, W, self.dp))
         return self._eval_render[1]
 
-    def _render_orbit_frame(self, i: int, size: int, H: int, W: int,
-                            timings: Optional[Dict[str, float]] = None):
-        """Frame i of a size-frame orbit at H x W through make_eval_render."""
+    def _render_orbit_frame(self, i: int, size: int, H: int, W: int):
+        """Frame i of a size-frame orbit at H x W through make_eval_render
+        (its spans' id: i)."""
+        trace.set_id(i)
         batch = cameras.sample_test_batch(i, size, self.cfg, H=H, W=W,
                                           device=self.device)
         return self._get_eval_render(H, W)(
-            batch["rays_o"][0], batch["rays_d"][0], self.grid_state,
-            timings=timings)
+            batch["rays_o"][0], batch["rays_d"][0], self.grid_state)
 
     def _save_frame(self, out, path_rgb: str,
                     path_depth: Optional[str] = None) -> np.ndarray:

@@ -27,6 +27,7 @@ from dreamfusion_tpu.ops import marching as jmarch
 from dreamfusion_tpu.ops.composite import near_far_from_aabb as j_near_far
 
 from dreamfusion_torch import cameras as tcam
+from dreamfusion_torch import trace
 from dreamfusion_torch.config import Config as TConfig
 from dreamfusion_torch.ops import marching as tmarch
 from dreamfusion_torch.ops import probe as tprobe
@@ -431,6 +432,21 @@ def _jax_direct(jcfg, jm, params, gs, i, size):
     return direct(params, gs, o, d), o, d
 
 
+def _recorded_stages(fn):
+    """fn() with the span recorder on -> (what it returned, the names of
+    the eval/ spans it entered, the prefix cut)."""
+    trace.reset()
+    trace.enable()
+    try:
+        out = fn()
+    finally:
+        trace.disable()
+    stages = {k.removeprefix("eval/") for k in trace.table()
+              if k.startswith("eval/")}
+    trace.reset()
+    return out, stages
+
+
 @pytest.mark.parametrize("bound,tables", [(1.0, "f32"), (1.0, "bf16"),
                                           (2.0, "f32")])
 def test_staged_eval_matches_jax_direct_render(bound, tables):
@@ -441,9 +457,8 @@ def test_staged_eval_matches_jax_direct_render(bound, tables):
     jcfg, jm, params, gs, tcfg, tm, tgs = _eval_setup(bound, tables)
     ref, o, d = _jax_direct(jcfg, jm, params, gs, 0, 10)
     render = ttrainer.make_staged_grid_eval(tcfg, tm, 16, 16)
-    timings = {}
-    out = render(_t(o), _t(d), tgs, timings=timings)
-    assert set(timings) == {"classify", "bg", "march", "shade", "finish"}
+    out, stages = _recorded_stages(lambda: render(_t(o), _t(d), tgs))
+    assert stages == {"classify", "bg", "march", "shade", "finish"}
     rtol, atol = (1e-4, 1e-5) if tables == "f32" else (5e-2, 2e-2)
     for k in ("image", "weights_sum", "depth"):
         np.testing.assert_allclose(_np(out[k]).reshape(ref[k].shape),

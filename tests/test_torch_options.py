@@ -39,7 +39,7 @@ from dreamfusion_torch.training import shampoo as tshampoo
 from dreamfusion_torch.training import trainer as ttrainer
 from dreamfusion_torch.weights import _convert, from_jax_params
 
-from test_torch_eval import _eval_setup, _np
+from test_torch_eval import _eval_setup, _np, _recorded_stages
 from test_torch_marching import (SMALL, _close, _compare_grads, _nerf_pair,
                                  _refresh, _t)
 from test_torch_o2 import _projection_pair
@@ -249,11 +249,10 @@ def test_fallback_eval_matches_jax_and_direct(monkeypatch):
 
     monkeypatch.setattr(ttrainer, "march_rays", march_spy)
     monkeypatch.setattr(tmarch, "composite_compact", compact_spy)
-    timings = {}
-    out = ttrainer.make_staged_grid_eval(tcfg, tm, 16, 16)(
-        _t(o), _t(d), tgs, timings=timings)
+    render = ttrainer.make_staged_grid_eval(tcfg, tm, 16, 16)
+    out, stages = _recorded_stages(lambda: render(_t(o), _t(d), tgs))
     assert calls == {"march": 8, "compact": 0}
-    assert set(timings) == {"bg", "march", "shade", "finish"}
+    assert stages == {"bg", "march", "shade", "finish"}
     for k in ("image", "weights_sum", "depth"):
         np.testing.assert_allclose(_np(out[k]), np.asarray(jframe[k]),
                                    rtol=1e-4, atol=1e-5)
