@@ -141,8 +141,8 @@ Phases:
            65,536 points equal the fine field's, atol 1e-6), 3 editing steps
            (-O --backbone dvgo --bg_radius 0, SD random-full: B and K5), and
            an 800x800 ImageRenderer frame against the analytic scene; the
-           pretraining itself launches no hand-written kernel (its path has
-           none: dense grid_sample_3d, cumprod compositing);
+           pretraining itself launches kernel G (grid_sample_3d) and no
+           other hand-written kernel (cumprod compositing);
   sd_dir   a whole SD directory at SD v1.5 widths found by the probe: the
            random-full UNet and VAE in float16 safetensors under diffusers
            names (~1.7 GB), a random ViT-L/14-width text encoder and a
@@ -165,8 +165,9 @@ Phases:
            draws (rtol 1e-4 / atol 1e-5; OSR_Fine and V2, whose normal
            steers, within 3x a CPU control with the ray origins moved an
            ulp either way, and their normal on the same positions to
-           1e-4 / 1e-5), one OSR_Fine evaluate batch under no_grad; no
-           kernel on this path;
+           1e-4 / 1e-5), one OSR_Fine evaluate batch under no_grad;
+           kernel G and no other kernel on this path (the normals keep the
+           written-out gather);
   jobs     the job layer: LocalBackend.submit of
            dreamfusion_torch.training.jobs:train_model(params_for_nerf(<the
            ball scene>)) as a subprocess on the card, at the widths of
@@ -200,7 +201,12 @@ Phases:
            probes), and kernel F (the cone march, no Pallas counterpart)
            bitwise against its plain version at the train shape (4,096
            jittered, perturbed rays of the options phase's grid, max_steps
-           512, K 128) and on a 4,096-ray eval chunk, with times for
+           512, K 128) and on a 4,096-ray eval chunk, and kernel G (the
+           voxel-grid sampler, no Pallas counterpart) forward and backward,
+           and its deterministic mode's ordered backward, at a pretraining
+           step's shapes (the density at 8,192 x 954 samples of the ball
+           scene's rays, ball_ring_rays, k0 at those inside the box),
+           with times for
            kernel, plain version and, where one exists, one library call
            computing the same function (CUDA
            events; for the eval's two kernels, which take less time than
@@ -258,6 +264,9 @@ REPLACES = {
     "probe_select_small": "dreamfusion_tpu/ops/pallas_probe.py:72",
     # no Pallas counterpart: the JAX package's lax.scan cone march
     "march_cone": "dreamfusion_tpu/ops/marching.py:248",
+    # no Pallas counterpart: the JAX package's written-out gather
+    "grid_sample_fwd": "dreamfusion_tpu/ops/grid_sample.py",
+    "grid_sample_bwd": "dreamfusion_tpu/ops/grid_sample.py",
 }
 # kernel A at a level of 4,096 rows stands in for K1b, matmul_scatter_add_oct
 K1B_REPLACES = "dreamfusion_tpu/ops/pallas_scatter.py:645"
@@ -271,6 +280,8 @@ SOURCES = {
     "composite_compact": "dreamfusion_torch/csrc/fused_composite.cu",
     "probe_select_small": "dreamfusion_torch/csrc/probe_select.cu",
     "march_cone": "dreamfusion_torch/csrc/march_cone.cu",
+    "grid_sample_fwd": "dreamfusion_torch/csrc/grid_sample.cu",
+    "grid_sample_bwd": "dreamfusion_torch/csrc/grid_sample.cu",
 }
 # the kernels of each path the script drives
 TRAIN_KERNELS = ("grid_encoder_bwd", "composite_fwd", "composite_bwd",
@@ -283,6 +294,8 @@ EDIT_TRAIN_KERNELS = ("composite_fwd", "composite_bwd", "attention_fwd",
                       "attention_bwd")
 EDIT_EVAL_KERNELS = ("composite_compact", "probe_select_small")
 ENCODER_KERNELS = ("grid_encoder_bwd", "grid_encoder_bwd_rows")
+# DVGO's voxel grids (pretraining, the zoo, the editing field)
+GRID_SAMPLE_KERNELS = ("grid_sample_fwd", "grid_sample_bwd")
 # -O2 (path A) with the grid backbone: kernel A in the field's backward and
 # the flash kernels through SDS; the compositor is plain on this path
 O2_TRAIN_KERNELS = ("grid_encoder_bwd", "attention_fwd", "attention_bwd")
@@ -304,6 +317,13 @@ def _recorded(fn):
           if v["calls"]}
     trace.reset()
     return out, ms
+
+
+def only_grid_sample(counts) -> bool:
+    """Whether counts launched kernel G both ways and no other kernel."""
+    return (min(counts.get(k, 0) for k in GRID_SAMPLE_KERNELS) > 0
+            and not any(v for k, v in counts.items()
+                        if k not in GRID_SAMPLE_KERNELS))
 
 
 def log(msg: str) -> None:
@@ -2269,6 +2289,127 @@ def check_probe(table, idx):
     return res
 
 
+def ball_ring_rays(n_rays: int, seed: int, size: int = 400):
+    """n_rays training rays of the ball scene's 100 train views
+    (write_ball_scene's cameras, size^2 pixels), each ray's view and pixel
+    drawn from the seed: (rays_d, rays_o, viewdirs, target) float32 numpy
+    [n_rays, 3], the order DVGO's ray loader yields; target the ball's
+    colour on white."""
+    c2ws = _ball_poses(100, np.random.RandomState(0))
+    focal = 0.5 * size / math.tan(0.5 * BLENDER_ANGLE_X)
+    rng = np.random.RandomState(seed % 2 ** 32)
+    view = rng.randint(0, len(c2ws), n_rays)
+    px = rng.randint(0, size, n_rays) + 0.5
+    py = rng.randint(0, size, n_rays) + 0.5
+    dirs = np.stack([(px - 0.5 * size) / focal, -(py - 0.5 * size) / focal,
+                     -np.ones(n_rays)], -1)
+    rays_d = np.einsum("nij,nj->ni", c2ws[view, :3, :3], dirs)
+    rays_o = c2ws[view, :3, 3]
+    viewdirs = rays_d / np.linalg.norm(rays_d, axis=-1, keepdims=True)
+    rgb, hit = _ball_colour(rays_o, viewdirs)
+    target = np.where(hit[:, None], rgb, 1.0)
+    return tuple(a.astype(np.float32)
+                 for a in (rays_d, rays_o, viewdirs, target))
+
+
+def dvgo_ring_samples(n_rays: int, seed: int, device="cuda"):
+    """(x01 [n_rays * 954, 3], out-of-box mask [n_rays * 954]) of
+    ball_ring_rays sampled as DVGO's fine field samples them in pretraining
+    (near 2, far 6, box +-1, 159^3 voxels, stepsize 0.5, 954 samples a ray,
+    ray jitter): most samples lie past the box and clamp onto its faces,
+    edges and corners."""
+    from dreamfusion_torch.models.dvgo import sample_ray
+
+    dev = torch.device(device)
+    rays_d, rays_o = (torch.from_numpy(a).to(dev)
+                      for a in ball_ring_rays(n_rays, seed)[:2])
+    lo = torch.full((3,), -1.0, device=dev)
+    hi = torch.full((3,), 1.0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pts, oob = sample_ray(rays_o, rays_d, near=2.0, far=6.0, xyz_min=lo,
+                          xyz_max=hi, voxel_size=2 / 159, stepsize=0.5,
+                          n_samples=954,
+                          jitter=torch.rand(n_rays, 1, device=dev,
+                                            generator=g))
+    return ((pts - lo) / (hi - lo)).reshape(-1, 3).contiguous(), \
+        oob.reshape(-1)
+
+
+def check_grid_sample(label, C, x01, live, gen):
+    """Kernel G (grid_sample_fwd, grid_sample_bwd) at a [C, 159^3] grid
+    against the plain gather: the forward within 1e-6 and the gradient
+    within 1e-5 of their largest entries (atomics add in another order),
+    and so the deterministic mode's ordered backward
+    (grid_sample_bwd_ordered). Device times (torch.profiler,
+    device_time_and_launches) of both kernels (the backward with the
+    gradient's zeroing), the ordered backward, the plain forward and its
+    autograd backward, and F.grid_sample (padding "border", the same clamp)
+    forward and backward; byte bounds: positions and output (forward); the
+    cotangent, the positions of the samples whose cotangent is live and the
+    dense gradient (backward)."""
+    import torch.nn.functional as F
+
+    from dreamfusion_torch.ops import grid_sample as gs
+
+    dev, B = x01.device, x01.shape[0]
+    grid = torch.randn(C, 159, 159, 159, device=dev, generator=gen)
+    cot = torch.where(live[:, None], torch.randn(B, C, device=dev,
+                                                 generator=gen), 0.0)
+    out = gs.grid_sample_fwd_cuda(grid, x01)
+    d = gs.grid_sample_bwd_cuda(x01, cot, grid.shape)
+    d_o = gs.grid_sample_bwd_ordered(x01, cot, grid.shape)
+    gp = grid.clone().requires_grad_(True)
+    out_p = gs.grid_sample_3d_plain(gp, x01)
+    (d_p,) = torch.autograd.grad(out_p, gp, cot, retain_graph=True)
+    torch.cuda.synchronize()
+    fwd_err, bwd_err = rel_err(out, out_p.detach()), rel_err(d, d_p)
+    ordered_err = rel_err(d_o, d_p)
+    n_live = int(live.sum())
+    skipped = 1.0 - n_live / B
+    log(f"[kernels] G {label}: C={C}, B={B:,} samples, {skipped:.4f} of "
+        f"them with an all-zero cotangent (skipped); forward rel err "
+        f"{fwd_err:.3g} (1e-6), gradient {bwd_err:.3g} (1e-5), ordered "
+        f"gradient {ordered_err:.3g} (1e-5)")
+    if fwd_err > 1e-6 or bwd_err > 1e-5 or ordered_err > 1e-5:
+        raise AssertionError(f"kernel G disagrees with the plain gather "
+                             f"({label})")
+    plain_b = lambda: torch.autograd.grad(  # noqa: E731
+        out_p, gp, cot, retain_graph=True)
+    gl = grid[None].clone().requires_grad_(True)
+    ind = (x01 * 2 - 1).flip(-1).reshape(1, B, 1, 1, 3)
+    lib_f = lambda: F.grid_sample(  # noqa: E731
+        gl, ind, mode="bilinear", padding_mode="border", align_corners=True)
+    out_l = lib_f()
+    cot_l = cot.t().reshape(1, C, B, 1, 1)
+    lib_b = lambda: torch.autograd.grad(  # noqa: E731
+        out_l, gl, cot_l, retain_graph=True)
+    res = {}
+    for way, kernel, plain, lib, nbytes in (
+            ("fwd", lambda: gs.grid_sample_fwd_cuda(grid, x01),
+             lambda: gs.grid_sample_3d_plain(grid, x01), lib_f,
+             B * (12 + 4 * C)),
+            ("bwd", lambda: gs.grid_sample_bwd_cuda(x01, cot, grid.shape),
+             plain_b, lib_b, n_live * 12 + B * 4 * C + grid.numel() * 4)):
+        ms, launches = device_time_and_launches(kernel)
+        b_ms, b_by = bound(nbytes, 0)
+        r = {"max_rel_err": fwd_err if way == "fwd" else bwd_err, "ms": ms,
+             "launches_a_call": launches, "plain_ms": device_ms(plain, reps=5),
+             "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": device_ms(lib, reps=5), "skipped_share": skipped}
+        ordered = ""
+        if way == "bwd":
+            r["ordered_ms"] = device_ms(lambda: gs.grid_sample_bwd_ordered(
+                x01, cot, grid.shape), reps=5)
+            ordered = f", ordered (deterministic mode) {r['ordered_ms']:.4f} ms"
+        log(f"[kernels] G {label} {way}: kernel {ms:.4f} ms ({launches} "
+            f"device launches a call), plain {r['plain_ms']:.4f} ms"
+            f"{ordered}, F.grid_sample {r['library_ms']:.4f} ms, bound "
+            f"{b_ms:.5f} ms ({b_by}); CUDA events over 20 calls "
+            f"{cuda_ms(kernel):.4f} ms")
+        res[way] = r
+    return res
+
+
 def cone_inputs(label, gs, rays_o, rays_d, cfg, perturb: bool, gen):
     """Kernel F's inputs for rays through grid state gs: (label, occ,
     rays_o, rays_d, t0, fars, bound, max_steps, K, dt_gamma), t0 the
@@ -2727,24 +2868,39 @@ BALL_RADIUS = 1.0
 BLENDER_ANGLE_X = 0.6911112070083618      # nerf_synthetic's camera_angle_x
 
 
+def _ball_colour(o: np.ndarray, d: np.ndarray):
+    """(rgb [N, 3], hit [N]) of rays from o along unit d [N, 3] against the
+    ball of radius BALL_RADIUS at the origin: 0.5 + 0.5 n by the unit normal
+    where they hit it."""
+    b = (o * d).sum(-1)
+    disc = b * b - ((o * o).sum(-1) - BALL_RADIUS ** 2)
+    t = -b - np.sqrt(np.maximum(disc, 0.0))
+    return 0.5 + 0.5 * ((o + t[:, None] * d) / BALL_RADIUS), disc > 0
+
+
 def _ball_view(H: int, W: int, focal: float, c2w: np.ndarray) -> np.ndarray:
     """The analytic ball scene seen from c2w: RGBA uint8 [H, W, 4], the
-    ball of radius BALL_RADIUS at the origin coloured by its unit normal
-    (0.5 + 0.5 n), transparent elsewhere."""
+    ball coloured by _ball_colour, transparent elsewhere."""
     from dreamfusion_torch.datasets.rays import get_rays_of_a_view
 
     K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]])
     ro, _, vd = get_rays_of_a_view(H, W, K, c2w)
-    o, d = ro.reshape(-1, 3).astype(np.float64), vd.reshape(-1, 3)
-    b = (o * d).sum(-1)
-    disc = b * b - ((o * o).sum(-1) - BALL_RADIUS ** 2)
-    hit = disc > 0
-    t = -b - np.sqrt(np.maximum(disc, 0.0))
-    n = (o + t[:, None] * d) / BALL_RADIUS
+    rgb, hit = _ball_colour(ro.reshape(-1, 3).astype(np.float64),
+                            vd.reshape(-1, 3))
     rgba = np.zeros((H * W, 4))
-    rgba[hit, :3] = 0.5 + 0.5 * n[hit]
+    rgba[hit, :3] = rgb[hit]
     rgba[hit, 3] = 1.0
     return np.round(rgba * 255).astype(np.uint8).reshape(H, W, 4)
+
+
+def _ball_poses(n: int, rng: np.random.RandomState) -> np.ndarray:
+    """n cameras [n, 4, 4] on the upper hemisphere at radius 4 looking at
+    the origin, placed by rng."""
+    from dreamfusion_torch.datasets.loaders import _pose_spherical
+
+    return np.stack([_pose_spherical(rng.uniform(-180, 180),
+                                     rng.uniform(-80, -5), 4.0)
+                     for _ in range(n)])
 
 
 def write_ball_scene(root: str, n_train: int = 100, n_val: int = 4,
@@ -2752,7 +2908,6 @@ def write_ball_scene(root: str, n_train: int = 100, n_val: int = 4,
     """The ball scene in the Blender layout (transforms_{split}.json and
     RGBA PNGs by the port's write_png), nerf_synthetic at half resolution:
     cameras on the upper hemisphere at radius 4 looking at the origin."""
-    from dreamfusion_torch.datasets.loaders import _pose_spherical
     from dreamfusion_torch.training.trainer import write_png
 
     focal = 0.5 * size / math.tan(0.5 * BLENDER_ANGLE_X)
@@ -2760,9 +2915,7 @@ def write_ball_scene(root: str, n_train: int = 100, n_val: int = 4,
     for split, n in (("train", n_train), ("val", n_val), ("test", n_test)):
         os.makedirs(os.path.join(root, split), exist_ok=True)
         frames = []
-        for i in range(n):
-            c2w = _pose_spherical(rng.uniform(-180, 180),
-                                  rng.uniform(-80, -5), 4.0)
+        for i, c2w in enumerate(_ball_poses(n, rng)):
             write_png(os.path.join(root, split, f"r_{i}.png"),
                       _ball_view(size, size, focal, c2w))
             frames.append({"file_path": f"./{split}/r_{i}",
@@ -2879,9 +3032,9 @@ def phase_pretrain(guidance=None, coarse_iters: int = 300,
             f"{rates['coarse']:.4f}, fine {rates['fine']:.4f}; the whole "
             f"pipeline {wall:.1f} s; peak device memory {peak:.2f} GiB")
         log(f"[pretrain] kernels of the pretraining run {json.dumps(counts)}")
-        if any(counts.values()):
-            raise AssertionError("DVGO pretraining launched a hand-written "
-                                 f"kernel; its path has none: {counts}")
+        if not only_grid_sample(counts):
+            raise AssertionError("DVGO pretraining must launch kernel G in "
+                                 f"both ways and no other kernel: {counts}")
 
         # the fine field before training: a trainer from the same seed and
         # shape initialises it as the pipeline's did
@@ -3400,7 +3553,7 @@ def phase_zoo(data, steps: int = 5, warmup: int = 2):
     (_zoo_card_vs_cpu); one evaluate batch of OSR_Fine under no_grad.
     OSR_Fine_RGI returns no raw_rgb, so it trains with weight_rgbper 0, as
     the JAX package must. Returns the launch counts of the training steps
-    (the path has no hand-written kernel)."""
+    (kernel G's alone)."""
     from dreamfusion_torch.models.zoo import get_field
     from dreamfusion_torch.ops import cuda as kcuda
     from dreamfusion_torch.training.dvgo_trainer import (DVGOStageConfig,
@@ -3487,9 +3640,9 @@ def phase_zoo(data, steps: int = 5, warmup: int = 2):
     log(f"[zoo] kernels of the zoo's training steps {json.dumps(counts)}")
     if failed:        # every class runs first, then the phase fails
         raise AssertionError("; ".join(failed))
-    if any(counts.values()):
-        raise AssertionError("the zoo's steps launched a hand-written kernel; "
-                             f"their path has none: {counts}")
+    if not only_grid_sample(counts):
+        raise AssertionError("the zoo's steps must launch kernel G in both "
+                             f"ways and no other kernel: {counts}")
     return counts
 
 
@@ -3683,6 +3836,13 @@ def phase_kernels(trainer, counts, captured=None, o2_trainer=None,
     vae_attn = check_attention(1, 4096, 1, 512, gen, dev, grad=True)
     cone = [check_march_cone(*case, timed=True)
             for case in _cone_cases(opt_trainer, gen)]
+    # kernel G at a pretraining step's shapes: the density at all 8,192 x
+    # 954 samples (cotangent 0 past the box), k0 at those inside it
+    x01, oob = dvgo_ring_samples(8192, 0)
+    g_density = check_grid_sample("density", 1, x01, ~oob, gen)
+    g_k0 = check_grid_sample("k0", 12, x01[~oob].contiguous(),
+                             torch.ones_like(oob[~oob]), gen)
+    del x01, oob
     results = [("grid_encoder_bwd", a_dense), ("grid_encoder_bwd", a_comp),
                ("grid_encoder_bwd", a_k1b),
                *([("grid_encoder_bwd", a_o2)] if a_o2 is not None else []),
@@ -3691,7 +3851,9 @@ def phase_kernels(trainer, counts, captured=None, o2_trainer=None,
                ("composite_bwd", bb), ("attention_fwd", unet_attn["fwd"]),
                ("attention_fwd", vae_attn["fwd"]),
                ("attention_bwd", vae_attn["bwd"]),
-               *(("march_cone", c) for c in cone)]
+               *(("march_cone", c) for c in cone),
+               *((f"grid_sample_{way}", g[way]) for g in (g_density, g_k0)
+                 for way in ("fwd", "bwd"))]
     # the eval's kernels at the inputs its frame gave them: C at every
     # compact budget the groups used (timed at the most used), D at the
     # frame's classify probes

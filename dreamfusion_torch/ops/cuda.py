@@ -44,6 +44,7 @@ SOURCES = {
     "flash_attention": "flash_attention.cu",
     "probe_select": "probe_select.cu",
     "march_cone": "march_cone.cu",
+    "grid_sample": "grid_sample.cu",
     "mesh_native": "mesh_native.cpp",
 }
 
@@ -61,6 +62,8 @@ launch_counts: Dict[str, int] = {
     "attention_bwd": 0,
     "probe_select_small": 0,
     "march_cone": 0,
+    "grid_sample_fwd": 0,
+    "grid_sample_bwd": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -755,3 +755,177 @@ def test_march_cone_kernel_refuses_bad_inputs(dev):
     with pytest.raises(ValueError):
         marching.march_rays_cone_cuda(occ, o.t().contiguous().t(), o, t,
                                       t[:3], **kw)
+
+
+def _plain_grid_grad(grid, x01, cot):
+    """(out, d grid) of sum(grid_sample_3d_plain(grid, x01) * cot)."""
+    from dreamfusion_torch.ops import grid_sample as gs
+
+    g = grid.detach().clone().requires_grad_(True)
+    out = gs.grid_sample_3d_plain(g, x01)
+    (out * cot).sum().backward()
+    return out.detach(), g.grad
+
+
+@pytest.mark.parametrize("C", [1, 12])
+def test_grid_sample_kernels_match_plain_on_dvgo_rays(dev, C):
+    """Kernel G through grid_sample_3d against the plain gather, at a
+    159^3 grid and 1,024 rays of the ball scene's camera ring
+    (chip_smoke.dvgo_ring_samples) x 954 samples, the
+    cotangent zeroed past the box by DVGO's torch.where: one launch each
+    way; the forward within 1e-6 of its largest value, the grid gradient
+    within 1e-5 of its largest entry (atomics add in another order)."""
+    from chip_smoke import dvgo_ring_samples
+    from dreamfusion_torch.ops import cuda as kcuda
+    from dreamfusion_torch.ops import grid_sample as gs
+
+    x01, oob = dvgo_ring_samples(1024, 7, dev)
+    assert float(oob.float().mean()) > 0.5
+    g = torch.Generator(device=dev).manual_seed(C)
+    grid = torch.randn(C, 159, 159, 159, device=dev, generator=g)
+    cot = torch.where(oob[:, None], 0.0,
+                      torch.randn(x01.shape[0], C, device=dev, generator=g))
+    n0 = dict(kcuda.launch_counts)
+    gk = grid.clone().requires_grad_(True)
+    out = gs.grid_sample_3d(gk, x01.reshape(1024, 954, 3))
+    assert out.shape == (1024, 954, C)
+    (out.reshape(-1, C) * cot).sum().backward()
+    assert kcuda.launch_counts["grid_sample_fwd"] == n0["grid_sample_fwd"] + 1
+    assert kcuda.launch_counts["grid_sample_bwd"] == n0["grid_sample_bwd"] + 1
+    out_p, d_p = _plain_grid_grad(grid, x01, cot)
+    torch.cuda.synchronize()
+    out = out.detach().reshape(-1, C)
+    assert (out - out_p).abs().max() <= 1e-6 * out_p.abs().max()
+    assert (gk.grad - d_p).abs().max() <= 1e-5 * d_p.abs().max()
+
+
+@pytest.mark.parametrize("C", [1, 12])
+def test_grid_sample_kernels_on_the_faces_and_past_them(dev, C):
+    """Positions exactly at 0 and 1, on grid nodes, and past the box on
+    either side (every combination over the three axes, each repeated 5
+    times in a row so that lanes of a warp share a voxel), and 4,096
+    random ones in [-0.2, 1.2], on a [C, 5, 6, 7] grid (odd planes: the
+    float2 atomics' alignment varies by channel); a NaN cotangent reaches
+    the same entries as through the plain gather; an all-zero cotangent
+    gives a zero gradient."""
+    from dreamfusion_torch.ops import grid_sample as gs
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    grid = torch.randn(C, 5, 6, 7, device=dev, generator=g)
+    v = torch.tensor([-0.5, 0.0, 1 / 3, 0.5, 1.0, 1.5], device=dev)
+    edge = torch.cartesian_prod(v, v, v).repeat_interleave(5, 0)
+    x01 = torch.cat([edge, torch.rand(4096, 3, device=dev, generator=g)
+                     * 1.4 - 0.2]).contiguous()
+    cot = torch.randn(x01.shape[0], C, device=dev, generator=g)
+    out = gs.grid_sample_fwd_cuda(grid, x01)
+    d = gs.grid_sample_bwd_cuda(x01, cot, grid.shape)
+    out_p, d_p = _plain_grid_grad(grid, x01, cot)
+    torch.cuda.synchronize()
+    assert (out - out_p).abs().max() <= 1e-6 * out_p.abs().max()
+    assert (d - d_p).abs().max() <= 1e-5 * d_p.abs().max()
+    zero = gs.grid_sample_bwd_cuda(x01, torch.zeros_like(cot), grid.shape)
+    assert torch.equal(zero, torch.zeros_like(grid))
+    cot[1000, C - 1] = float("nan")
+    d = gs.grid_sample_bwd_cuda(x01, cot, grid.shape)
+    _, d_p = _plain_grid_grad(grid, x01, cot)
+    assert int(d_p.isnan().sum()) > 0
+    assert torch.equal(d.isnan(), d_p.isnan())
+
+
+def test_grid_sample_deterministic_mode_backward_repeats_bitwise(dev):
+    """Under torch's deterministic mode the forward is still kernel G's and
+    the backward the ordered index_put_ accumulation: two backward passes
+    give the same bits, within 1e-5 of the atomic backward's result."""
+    from chip_smoke import dvgo_ring_samples
+    from dreamfusion_torch.ops import cuda as kcuda
+    from dreamfusion_torch.ops import grid_sample as gs
+
+    x01, oob = dvgo_ring_samples(256, 3, dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    grid = torch.randn(12, 159, 159, 159, device=dev, generator=g)
+    cot = torch.where(oob[:, None], 0.0,
+                      torch.randn(x01.shape[0], 12, device=dev, generator=g))
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    n0 = dict(kcuda.launch_counts)
+    grads = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for _ in range(2):
+            gk = grid.clone().requires_grad_(True)
+            (gs.grid_sample_3d(gk, x01) * cot).sum().backward()
+            grads.append(gk.grad)
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+    assert kcuda.launch_counts["grid_sample_fwd"] == n0["grid_sample_fwd"] + 2
+    assert kcuda.launch_counts["grid_sample_bwd"] == n0["grid_sample_bwd"]
+    d = gs.grid_sample_bwd_cuda(x01, cot, grid.shape)
+    torch.cuda.synchronize()
+    assert torch.equal(grads[0], grads[1])
+    assert (grads[0] - d).abs().max() <= 1e-5 * d.abs().max()
+
+
+def test_grid_sample_position_gradient_keeps_the_plain_gather(dev):
+    """A position that requires grad (the editing field's and OSR's
+    autograd normals) launches no kernel and gets the plain version's
+    value and gradients bit for bit."""
+    from dreamfusion_torch.ops import cuda as kcuda
+    from dreamfusion_torch.ops import grid_sample as gs
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    grid = torch.randn(2, 9, 8, 7, device=dev, generator=g)
+    x = torch.rand(3000, 3, device=dev, generator=g) * 1.2 - 0.1
+    cot = torch.randn(3000, 2, device=dev, generator=g)
+    res = []
+    n0 = dict(kcuda.launch_counts)
+    for fn in (gs.grid_sample_3d, gs.grid_sample_3d_plain):
+        gk = grid.clone().requires_grad_(True)
+        xk = x.clone().requires_grad_(True)
+        out = fn(gk, xk)
+        (out * cot).sum().backward()
+        res.append((out.detach(), gk.grad, xk.grad))
+    assert kcuda.launch_counts == n0
+    for a, b in zip(*res):
+        assert torch.equal(a, b)
+
+
+def test_dvgo_render_launches_kernel_g_twice_each_way(dev, monkeypatch):
+    """One DVGO fine render and backward on the ball scene's rays (512 rays,
+    a 96^3 grid, k0 12): the density at every sample and k0 at the live
+    ones, 2 forward and 2 backward launches; loss and gradients against
+    the same step through the plain gather (1e-5 of each leaf's largest
+    entry)."""
+    from dreamfusion_torch.models.dvgo import DVGOField
+    from dreamfusion_torch.ops import cuda as kcuda
+    from dreamfusion_torch.ops import grid_sample as gs
+
+    from chip_smoke import ball_ring_rays
+
+    rays_d, rays_o, viewdirs, target = (torch.from_numpy(a).to(dev) for a in
+                                        ball_ring_rays(512, 9))
+    field = DVGOField(world_size=(96, 96, 96), k0_dim=12,
+                      rgbnet_name="resmlp", rgbnet_width=128,
+                      alpha_init=1e-2).to(dev)
+    field.reset_parameters(torch.Generator(device=dev).manual_seed(2))
+    jitter = torch.rand(512, 1, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(3))
+
+    def step():
+        field.zero_grad()
+        r = field.render(rays_o, rays_d, viewdirs, near=2.0, far=6.0,
+                         bg=1.0, n_samples=field.n_render_samples(6.0),
+                         jitter=jitter)
+        loss = ((r["rgb_marched"] - target) ** 2).mean()
+        loss.backward()
+        return float(loss.detach()), {k: p.grad.clone()
+                             for k, p in field.named_parameters()}
+
+    n0 = dict(kcuda.launch_counts)
+    loss, grads = step()
+    assert kcuda.launch_counts["grid_sample_fwd"] == n0["grid_sample_fwd"] + 2
+    assert kcuda.launch_counts["grid_sample_bwd"] == n0["grid_sample_bwd"] + 2
+    monkeypatch.setattr(gs, "kernel_grid", lambda grid: False)
+    loss_p, grads_p = step()
+    assert abs(loss - loss_p) <= 1e-6 * abs(loss_p)
+    for k, gp in grads_p.items():
+        assert (grads[k] - gp).abs().max() <= 1e-5 * gp.abs().max(), k

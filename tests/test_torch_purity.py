@@ -226,6 +226,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     from dreamfusion_torch.ops.grid_encoder import (
         GridEncoderSpec, _level_consts, grid_encoder_bwd_cuda,
         grid_encoder_bwd_rows_cuda)
+    from dreamfusion_torch.ops.grid_sample import (grid_sample_bwd_cuda,
+                                                   grid_sample_fwd_cuda)
 
     x = torch.zeros(4, 8)
     with pytest.raises(ValueError, match="CUDA"):
@@ -245,6 +247,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         probe.probe_select_small_cuda(torch.zeros(128, dtype=torch.uint8),
                                       torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        grid_sample_fwd_cuda(torch.zeros(12, 3, 4, 5), torch.zeros(4, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        grid_sample_bwd_cuda(torch.zeros(4, 3), torch.zeros(4, 12),
+                             (12, 3, 4, 5))
     cmap = marching.make_compact_map(torch.tensor([2, 1]), 4, 3)
     with pytest.raises(ValueError, match="CUDA"):
         fc.composite_compact_cuda(torch.zeros(3), torch.zeros(3, 3),
