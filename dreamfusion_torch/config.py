@@ -107,7 +107,9 @@ class Config:
 
     # -- guidance -------------------------------------------------------------
     guidance_scale: float = 100.0
-    sd_weights: Optional[str] = None    # SD dir | random-full/-tiny/-nano
+    # an SD v1.5 dir | random-full (SD v1.5) | random-xl (SDXL base 1.0)
+    # | random-tiny / -nano / -xl-tiny (CPU sizes)
+    sd_weights: Optional[str] = None
     clip_weights: Optional[str] = None  # random-tiny (the one buildable)
 
     # -- optimizer --------------------------------------------------------------

@@ -42,7 +42,8 @@ def build_guidance(cfg, device: torch.device,
     stable-diffusion, CLIP or none. For sd_weights None or random-full the
     probe (guidance/sd/probe.py) looks for a mounted SD directory first and
     loads it when found; otherwise None builds random-tiny and random-full
-    the SD-v1.5-sized random models."""
+    the SD-v1.5-sized random models. random-xl builds SDXL base 1.0 at its
+    published widths (random weights, stand-in text embeddings)."""
     if cfg.guidance == "none" or cfg.text is None:
         return none_guidance(device)
     if cfg.guidance == "stable-diffusion":

@@ -28,7 +28,7 @@ from dreamfusion_torch.guidance.sd.scheduler import (DiffusionSchedule,
                                                      make_schedule,
                                                      pndm_plms_step,
                                                      pndm_prk_step)
-from dreamfusion_torch.guidance.sd.sds import LATENT_SCALE, build_sd_guidance
+from dreamfusion_torch.guidance.sd.sds import build_sd_guidance
 from dreamfusion_torch.guidance.sd.unet import UNet2DCondition
 from dreamfusion_torch.guidance.sd.vae import AutoencoderKL
 
@@ -80,7 +80,7 @@ def produce_latents(unet: UNet2DCondition, sched: DiffusionSchedule,
 def decode_latents(vae: AutoencoderKL, latents: torch.Tensor) -> torch.Tensor:
     """latents [B, h, w, 4] -> images [B, 8h, 8w, 3] f32 in [0, 1]
     (nerf/sd.py:145-154)."""
-    return torch.clamp(vae.decode(latents / LATENT_SCALE) / 2.0 + 0.5,
+    return torch.clamp(vae.decode(latents / vae.scaling_factor) / 2.0 + 0.5,
                        0.0, 1.0)
 
 
@@ -110,6 +110,9 @@ def prompt_to_img(prompts: Union[str, Sequence[str]],
             sd_weights, guidance_scale=guidance_scale,
             dtype=torch.bfloat16, device=device,
             generator=torch.Generator(device=device).manual_seed(0))
+    if guidance.modules["unet"].addition_time_embed_dim:
+        raise NotImplementedError("txt2img with SDXL's text-time "
+                                  "conditioning is not ported")
     if guidance.modules["latent_size"] < 64:     # the tiny models: 64 px
         height, width = min(height, 64), min(width, 64)
     if text_z is None:

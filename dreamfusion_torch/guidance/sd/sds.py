@@ -1,25 +1,30 @@
 """Score Distillation Sampling as one scalar loss (counterpart of
-dreamfusion_tpu/guidance/sd/sds.py).
+dreamfusion_tpu/guidance/sd/sds.py), with SD v1.5 or SDXL base 1.0.
 
     loss_sds = sum( detach(w * (eps_hat - eps)) * latents )
 
 so d(loss)/d(latents) = w (eps_hat - eps), the reference's
 latents.backward(gradient=...) (nerf/sd.py:74-118). Per step: bilinear
-resize to 512^2 -> VAE encode (with grad) * 0.18215 -> t ~ U{20..980} ->
-add noise -> UNet with CFG (no grad) -> w = 1 - alphas_cumprod[t]. The
-encode and the CFG forward run under the spans step/guidance/vae_encode
-and step/guidance/unet (dreamfusion_torch.trace).
+resize to 8x the latent size (512^2 for SD v1.5, 1024^2 for SDXL) -> VAE
+encode (with grad) * the VAE's scaling_factor (0.18215 / 0.13025) -> t ~
+U{20..980} -> add noise -> UNet with CFG (no grad) -> w = 1 -
+alphas_cumprod[t]. SDXL's text_z is a dict: the context [n, 2, 77, 2048]
+and the pooled embedding [n, 2, 1280] (uncond, cond), indexed together;
+both CFG halves get the pooled embedding of their own half and the time
+ids (H, W, 0, 0, H, W) of the encoded image. The encode and the CFG
+forward run under the spans step/guidance/vae_encode and
+step/guidance/unet (dreamfusion_torch.trace).
 
 ``build_sd_guidance`` builds random models or loads a local diffusers SD
-directory with its text encoder (``build_guidance`` finds a mounted one
-through guidance/sd/probe.py).
+v1.5 directory with its text encoder (``build_guidance`` finds a mounted
+one through guidance/sd/probe.py).
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Union
 
 import torch
 import torch.nn as nn
@@ -33,33 +38,47 @@ from dreamfusion_torch.guidance.sd.scheduler import (DiffusionSchedule,
                                                      add_noise, make_schedule)
 from dreamfusion_torch.guidance.sd.unet import (LayerNorm, UNet2DCondition,
                                                 nano_unet, sd15_unet,
-                                                tiny_unet)
-from dreamfusion_torch.guidance.sd.vae import (AutoencoderKL, nano_vae,
-                                               sd15_vae, tiny_vae)
+                                                sdxl_unet, tiny_unet,
+                                                tiny_xl_unet)
+from dreamfusion_torch.guidance.sd.vae import (SDXL_SCALING_FACTOR,
+                                               AutoencoderKL, nano_vae,
+                                               sd15_vae, sdxl_vae, tiny_vae)
 from dreamfusion_torch.models.networks import lecun_normal_
 
-LATENT_SCALE = 0.18215  # nerf/sd.py:162
+TextZ = Union[torch.Tensor, Dict[str, torch.Tensor]]
+
+
+def sdxl_time_ids(size: int, device=None) -> torch.Tensor:
+    """SDXL's six time ids of a size^2 image: original size, crop corner
+    (0, 0), target size."""
+    return torch.tensor([size, size, 0, 0, size, size], dtype=torch.float32,
+                        device=device)
 
 
 def sds_loss(unet: UNet2DCondition, vae: AutoencoderKL,
-             sched: DiffusionSchedule, text_z: torch.Tensor,
+             sched: DiffusionSchedule, text_z: TextZ,
              pred_rgb: torch.Tensor, *, guidance_scale: float = 100.0,
              min_step: int = 20, max_step: int = 980, latent_size: int = 64,
              generator: Optional[torch.Generator] = None,
-             draws: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
-    """text_z [B,2,77,D] (uncond, cond); pred_rgb [B,H,W,3] in [0,1].
-    draws (optional): vae_eps (posterior noise, latent shape), t [B] int in
-    [min_step, max_step], noise (latent shape)."""
+             draws: Optional[Dict[str, torch.Tensor]] = None,
+             time_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """text_z [B,2,77,D] (uncond, cond), or SDXL's dict of it ("context")
+    and the pooled embedding [B,2,P] ("pooled"); pred_rgb [B,H,W,3] in
+    [0,1]. draws (optional): vae_eps (posterior noise, latent shape), t [B]
+    int in [min_step, max_step], noise (latent shape). time_ids (SDXL, [6]):
+    by default sdxl_time_ids of the encoded image."""
     draws = draws or {}
     B = pred_rgb.shape[0]
     dev = pred_rgb.device
     size = latent_size * 8
+    context, pooled = ((text_z["context"], text_z["pooled"])
+                       if isinstance(text_z, dict) else (text_z, None))
     with trace.span("step/guidance/vae_encode"):
         img = F.interpolate(pred_rgb.permute(0, 3, 1, 2), size=(size, size),
                             mode="bilinear", align_corners=False)
         latents = vae.encode(2.0 * img.permute(0, 2, 3, 1) - 1.0,
                              eps=draws.get("vae_eps"),
-                             generator=generator) * LATENT_SCALE
+                             generator=generator) * vae.scaling_factor
     t = draws.get("t")
     if t is None:
         t = torch.randint(min_step, max_step + 1, (B,), generator=generator,
@@ -70,9 +89,15 @@ def sds_loss(unet: UNet2DCondition, vae: AutoencoderKL,
     t = t.to(dev).long()
     with torch.no_grad(), trace.span("step/guidance/unet"):
         latents_noisy = add_noise(sched, latents.detach(), noise, t)
+        cond = {}
+        if pooled is not None:
+            if time_ids is None:
+                time_ids = sdxl_time_ids(size, dev)
+            cond = {"text_embeds": torch.cat([pooled[:, 0], pooled[:, 1]]),
+                    "time_ids": time_ids.expand(2 * B, -1)}
         eps = unet(torch.cat([latents_noisy, latents_noisy]),
                    torch.cat([t, t]),
-                   torch.cat([text_z[:, 0], text_z[:, 1]]))
+                   torch.cat([context[:, 0], context[:, 1]]), **cond)
         eps_uncond, eps_text = eps[:B], eps[B:]
         eps_hat = eps_uncond + guidance_scale * (eps_text - eps_uncond)
         w = (1.0 - sched.alphas_cumprod[t]).reshape(B, 1, 1, 1)
@@ -105,17 +130,24 @@ def freeze(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     return module.eval()
 
 
-def pseudo_text_embeds(prompts, text_dim: int,
-                       device: torch.device) -> torch.Tensor:
+def pseudo_text_embeds(prompts, text_dim: int, device: torch.device,
+                       pooled_dim: int = 0) -> TextZ:
     """Deterministic per-prompt stand-in embeddings for random-weight
     models, seeded by the prompt's md5 (as the JAX package seeds them;
-    threefry and Philox give different numbers for the same seed)."""
-    outs = []
+    threefry and Philox give different numbers for the same seed):
+    [n, 77, text_dim]; with pooled_dim (SDXL), {"context": that, "pooled":
+    [n, pooled_dim] drawn next from each prompt's generator}."""
+    outs, pooled = [], []
     for p in prompts:
         seed = int(hashlib.md5(p.encode()).hexdigest()[:8], 16)
         g = torch.Generator().manual_seed(seed)
         outs.append(torch.randn(77, text_dim, generator=g))
-    return torch.stack(outs).to(device)
+        if pooled_dim:
+            pooled.append(torch.randn(pooled_dim, generator=g))
+    context = torch.stack(outs).to(device)
+    if not pooled_dim:
+        return context
+    return {"context": context, "pooled": torch.stack(pooled).to(device)}
 
 
 def build_sd_guidance(weights: Optional[str] = None,
@@ -124,18 +156,25 @@ def build_sd_guidance(weights: Optional[str] = None,
                       device: Optional[torch.device] = None,
                       generator: Optional[torch.Generator] = None) -> Guidance:
     """SD guidance: 'random-full' (SD v1.5 widths, random, in `dtype`),
-    'random-tiny' / None or 'random-nano' (random, f32, 64 px images), or a
-    local diffusers SD directory (SD v1.5 widths, its weights in `dtype`,
-    its CLIP text encoder and tokenizer; guidance/sd/convert.load_sd_dir).
-    Any other name raises: a hub name would need the network."""
+    'random-xl' (SDXL base 1.0's widths, random, in `dtype`, 1024 px
+    images), 'random-tiny' / None, 'random-nano' or 'random-xl-tiny'
+    (random, f32, 64 px images), or a local diffusers SD v1.5 directory (its
+    weights in `dtype`, its CLIP text encoder and tokenizer;
+    guidance/sd/convert.load_sd_dir). Any other name raises: a hub name
+    would need the network."""
     device = resolve_device(device)
     text_encode = None
     if weights == "random-nano":
         unet, vae, latent_size, compute = nano_unet(), nano_vae(), 8, torch.float32
     elif weights in (None, "random-tiny"):
         unet, vae, latent_size, compute = tiny_unet(), tiny_vae(), 8, torch.float32
+    elif weights == "random-xl-tiny":
+        unet, vae, latent_size, compute = (
+            tiny_xl_unet(), tiny_vae(SDXL_SCALING_FACTOR), 8, torch.float32)
     elif weights == "random-full":
         unet, vae, latent_size, compute = sd15_unet(), sd15_vae(), 64, dtype
+    elif weights == "random-xl":
+        unet, vae, latent_size, compute = sdxl_unet(), sdxl_vae(), 128, dtype
     elif os.path.isdir(weights):
         from dreamfusion_torch.guidance.sd.convert import (check_sd_dir,
                                                            load_sd_dir)
@@ -148,9 +187,9 @@ def build_sd_guidance(weights: Optional[str] = None,
                            text_encode=text_encode)
     else:
         raise NotImplementedError(
-            f"SD weights {weights!r}: not random-full / random-tiny / "
-            "random-nano nor a local diffusers SD directory (a hub name "
-            "would need the network)")
+            f"SD weights {weights!r}: not random-full / random-xl / "
+            "random-tiny / random-nano / random-xl-tiny nor a local "
+            "diffusers SD directory (a hub name would need the network)")
     unet = freeze(init_sd_module(unet.to(device), generator), compute)
     vae = freeze(init_sd_module(vae.to(device), generator), compute)
     return sd_guidance(unet, vae, latent_size, guidance_scale,
@@ -163,25 +202,39 @@ def sd_guidance(unet: UNet2DCondition, vae: AutoencoderKL, latent_size: int,
                 text_encode: Optional[Callable] = None) -> Guidance:
     """Guidance around frozen SD modules (on the modules' device).
     text_encode (optional): prompts -> [n, 77, D], a loaded text encoder;
-    without one, pseudo_text_embeds stands in (random-weight models)."""
+    without one, pseudo_text_embeds stands in (random-weight models; for
+    a UNet with the text-time embedding (SDXL) the pooled embedding too)."""
     device = unet.conv_in.weight.device
     text_dim = unet.cross_attention_dim
     sched = make_schedule(device=device)
+    pooled_dim, time_ids = 0, None
+    if unet.addition_time_embed_dim:
+        if text_encode is not None:
+            raise NotImplementedError("SDXL's two text encoders are not "
+                                      "ported")
+        pooled_dim = (unet.add_embedding.linear_1.in_features
+                      - 6 * unet.addition_time_embed_dim)
+        time_ids = sdxl_time_ids(8 * latent_size, device)
 
     def embed(prompts):
         if text_encode is not None:
             return text_encode(list(prompts)).float()
-        return pseudo_text_embeds(list(prompts), text_dim, device)
+        return pseudo_text_embeds(list(prompts), text_dim, device, pooled_dim)
 
     def get_text_embeds(prompts, negatives):
-        """[n] prompts -> [n, 2, 77, D] (uncond, cond)."""
-        return torch.stack([embed(negatives), embed(prompts)], dim=1)
+        """[n] prompts -> [n, 2, 77, D] (uncond, cond); SDXL: a dict of it
+        ("context") and the pooled [n, 2, P] ("pooled")."""
+        neg, pos = embed(negatives), embed(prompts)
+        if isinstance(pos, dict):
+            return {k: torch.stack([neg[k], pos[k]], dim=1) for k in pos}
+        return torch.stack([neg, pos], dim=1)
 
     def loss(text_z, pred_rgb, draws=None, gen=None):
         return sds_loss(unet, vae, sched, text_z, pred_rgb,
                         guidance_scale=guidance_scale,
                         latent_size=latent_size, draws=draws,
-                        generator=gen if gen is not None else generator)
+                        generator=gen if gen is not None else generator,
+                        time_ids=time_ids)
 
     return Guidance(name="stable-diffusion",
                     modules={"unet": unet, "vae": vae,

@@ -1,5 +1,5 @@
-"""UNet2DCondition, Stable Diffusion v1.x geometry (counterpart of
-dreamfusion_tpu/guidance/sd/unet.py).
+"""UNet2DCondition for Stable Diffusion v1.x and SDXL (the SD v1.x
+geometry is the counterpart of dreamfusion_tpu/guidance/sd/unet.py).
 
 NCHW inside; the public ``forward`` keeps the JAX layout: latents
 [B,H,W,4] in, eps [B,H,W,4] f32 out. Submodule names follow the JAX
@@ -8,17 +8,34 @@ package's flax names (down_blocks_0_resnets_1/conv1, ...), so
 convolutions compute in the dtype their weights are stored in (bf16 for
 the full model under -O); GroupNorm and LayerNorm parameters stay f32 and
 their statistics are f32.
+
+The geometry is set per level under the keys of diffusers'
+``unet/config.json``: ``down_block_types`` / ``up_block_types`` (which
+levels attend), ``transformer_layers_per_block`` (the depth of each
+level's transformer stack; the up blocks take the list reversed, the mid
+block the last level's), ``use_linear_projection`` (Linear in and out of
+a stack instead of 1x1 convolutions), ``addition_embed_type`` "text_time"
+(SDXL: six time ids, each a sinusoid of ``addition_time_embed_dim``,
+joined to the pooled text embedding and added to the timestep embedding).
+``attention_heads`` (config.json's ``attention_head_dim``, which counts
+heads) is one number or one per level. The defaults are SD v1.x's
+(attention at every level but the last, one block a stack).
+Beside diffusers, the port keeps its own LayerNorm epsilon (1e-6, flax's;
+diffusers 1e-5) and the tanh GELU in GEGLU (diffusers: the exact one).
+Each transformer stack runs under the span
+``step/guidance/unet/transformer`` (dreamfusion_torch.trace).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dreamfusion_torch import trace
 from dreamfusion_torch.guidance.sd.layers import GroupNorm, attention_core
 
 
@@ -157,21 +174,40 @@ class BasicTransformerBlock(nn.Module):
 
 
 class Transformer2D(nn.Module):
-    def __init__(self, channels: int, context_dim: int, heads: int):
+    """GroupNorm, proj_in (a 1x1 conv, or a Linear on the tokens when
+    `linear`), `depth` BasicTransformerBlocks, proj_out, plus the input."""
+
+    def __init__(self, channels: int, context_dim: int, heads: int,
+                 depth: int = 1, linear: bool = False):
         super().__init__()
+        self.depth, self.linear = depth, linear
         self.norm = GroupNorm(channels, 32, 1e-6)
-        self.proj_in = Conv2d(channels, channels, 1)
-        self.transformer_blocks_0 = BasicTransformerBlock(channels,
-                                                          context_dim, heads)
-        self.proj_out = Conv2d(channels, channels, 1)
+        self.proj_in = (Linear(channels, channels) if linear
+                        else Conv2d(channels, channels, 1))
+        for d in range(depth):
+            self.add_module(
+                f"transformer_blocks_{d}",
+                BasicTransformerBlock(channels, context_dim, heads))
+        self.proj_out = (Linear(channels, channels) if linear
+                         else Conv2d(channels, channels, 1))
 
     def forward(self, x, context):
         B, C, H, W = x.shape
-        h = self.proj_in(self.norm(x))
-        h = h.permute(0, 2, 3, 1).reshape(B, H * W, C)
-        h = self.transformer_blocks_0(h, context)
-        h = h.reshape(B, H, W, C).permute(0, 3, 1, 2)
-        return self.proj_out(h) + x
+        with trace.span("step/guidance/unet/transformer"):
+            h = self.norm(x)
+            if not self.linear:
+                h = self.proj_in(h)
+            h = h.permute(0, 2, 3, 1).reshape(B, H * W, C)
+            if self.linear:
+                h = self.proj_in(h)
+            for d in range(self.depth):
+                h = getattr(self, f"transformer_blocks_{d}")(h, context)
+            if self.linear:
+                h = self.proj_out(h)
+            h = h.reshape(B, H, W, C).permute(0, 3, 1, 2)
+            if not self.linear:
+                h = self.proj_out(h)
+            return h + x
 
 
 class Downsample2D(nn.Module):
@@ -196,22 +232,54 @@ class Upsample2D(nn.Module):
         return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
 
 
+def _per_level(value: Union[int, Sequence[int]], n: int) -> list:
+    return list(value) if isinstance(value, (list, tuple)) else [value] * n
+
+
 class UNet2DCondition(nn.Module):
-    """SD v1.x UNet: forward(latents [B,H,W,4], t [B], context [B,77,D])."""
+    """forward(latents [B,H,W,4], t [B], context [B,77,D]); with the
+    text-time embedding also text_embeds [B,P] (the pooled text embedding)
+    and time_ids [B,6]."""
 
     def __init__(self, in_channels: int = 4, out_channels: int = 4,
                  block_out_channels: Sequence[int] = (320, 640, 1280, 1280),
-                 layers_per_block: int = 2, attention_heads: int = 8,
-                 cross_attention_dim: int = 768):
+                 layers_per_block: int = 2,
+                 attention_heads: Union[int, Sequence[int]] = 8,
+                 cross_attention_dim: int = 768,
+                 down_block_types: Optional[Sequence[str]] = None,
+                 up_block_types: Optional[Sequence[str]] = None,
+                 transformer_layers_per_block: Union[int, Sequence[int]] = 1,
+                 use_linear_projection: bool = False,
+                 addition_embed_type: Optional[str] = None,
+                 addition_time_embed_dim: int = 256,
+                 projection_class_embeddings_input_dim: int = 2816):
         super().__init__()
         ch = list(block_out_channels)
+        n = len(ch)
         self.block_out_channels = ch
         self.layers_per_block = layers_per_block
         self.cross_attention_dim = cross_attention_dim
-        n = len(ch)
+        if addition_embed_type not in (None, "text_time"):
+            raise NotImplementedError(
+                f"addition_embed_type {addition_embed_type!r}")
+        # SD v1.x: attention at every level but the last
+        self.down_attn = ([i != n - 1 for i in range(n)]
+                          if down_block_types is None
+                          else ["CrossAttn" in b for b in down_block_types])
+        self.up_attn = ([i != 0 for i in range(n)] if up_block_types is None
+                        else ["CrossAttn" in b for b in up_block_types])
+        if len(self.down_attn) != n or len(self.up_attn) != n:
+            raise ValueError("one down and one up block type per level")
+        heads = _per_level(attention_heads, n)
+        depth = _per_level(transformer_layers_per_block, n)
+        ctx, linear = cross_attention_dim, use_linear_projection
         temb_dim = ch[0] * 4
-        heads, ctx = attention_heads, cross_attention_dim
         self.time_embedding = TimestepEmbedding(ch[0], temb_dim)
+        self.addition_time_embed_dim = (addition_time_embed_dim
+                                        if addition_embed_type else 0)
+        if addition_embed_type:
+            self.add_embedding = TimestepEmbedding(
+                projection_class_embeddings_input_dim, temb_dim)
         self.conv_in = Conv2d(in_channels, ch[0], 3, padding=1)
 
         skip_ch = [ch[0]]
@@ -222,9 +290,10 @@ class UNet2DCondition(nn.Module):
                 self.add_module(f"down_blocks_{i}_resnets_{j}",
                                 ResnetBlock2D(cur, ch[i], temb_dim))
                 cur = ch[i]
-                if not last:
+                if self.down_attn[i]:
                     self.add_module(f"down_blocks_{i}_attentions_{j}",
-                                    Transformer2D(cur, ctx, heads))
+                                    Transformer2D(cur, ctx, heads[i],
+                                                  depth[i], linear))
                 skip_ch.append(cur)
             if not last:
                 self.add_module(f"down_blocks_{i}_downsamplers_0",
@@ -232,31 +301,40 @@ class UNet2DCondition(nn.Module):
                 skip_ch.append(cur)
 
         self.mid_block_resnets_0 = ResnetBlock2D(cur, ch[-1], temb_dim)
-        self.mid_block_attentions_0 = Transformer2D(ch[-1], ctx, heads)
+        self.mid_block_attentions_0 = Transformer2D(ch[-1], ctx, heads[-1],
+                                                    depth[-1], linear)
         self.mid_block_resnets_1 = ResnetBlock2D(ch[-1], ch[-1], temb_dim)
         cur = ch[-1]
 
         for i in range(n):
-            out_ch = ch[::-1][i]
+            level = n - 1 - i
+            out_ch = ch[level]
             for j in range(layers_per_block + 1):
                 self.add_module(f"up_blocks_{i}_resnets_{j}",
                                 ResnetBlock2D(cur + skip_ch.pop(), out_ch,
                                               temb_dim))
                 cur = out_ch
-                if i != 0:
+                if self.up_attn[i]:
                     self.add_module(f"up_blocks_{i}_attentions_{j}",
-                                    Transformer2D(cur, ctx, heads))
+                                    Transformer2D(cur, ctx, heads[level],
+                                                  depth[level], linear))
             if i != n - 1:
                 self.add_module(f"up_blocks_{i}_upsamplers_0", Upsample2D(cur))
 
         self.conv_norm_out = GroupNorm(cur, 32, 1e-5)
         self.conv_out = Conv2d(cur, out_channels, 3, padding=1)
 
-    def forward(self, sample, timesteps, context):
+    def forward(self, sample, timesteps, context, text_embeds=None,
+                time_ids=None):
         ch = self.block_out_channels
         n = len(ch)
         dtype = self.conv_in.weight.dtype
         temb = self.time_embedding(timestep_embedding(timesteps, ch[0]))
+        if self.addition_time_embed_dim:
+            ids = timestep_embedding(time_ids.reshape(-1),
+                                     self.addition_time_embed_dim)
+            temb = temb + self.add_embedding(torch.cat(
+                [text_embeds.float(), ids.reshape(sample.shape[0], -1)], -1))
         temb = temb.to(dtype)
         context = context.to(dtype)
         h = self.conv_in(sample.permute(0, 3, 1, 2))
@@ -265,7 +343,7 @@ class UNet2DCondition(nn.Module):
             last = i == n - 1
             for j in range(self.layers_per_block):
                 h = getattr(self, f"down_blocks_{i}_resnets_{j}")(h, temb)
-                if not last:
+                if self.down_attn[i]:
                     h = getattr(self, f"down_blocks_{i}_attentions_{j}")(
                         h, context)
                 skips.append(h)
@@ -279,7 +357,7 @@ class UNet2DCondition(nn.Module):
             for j in range(self.layers_per_block + 1):
                 h = torch.cat([h, skips.pop()], dim=1)
                 h = getattr(self, f"up_blocks_{i}_resnets_{j}")(h, temb)
-                if i != 0:
+                if self.up_attn[i]:
                     h = getattr(self, f"up_blocks_{i}_attentions_{j}")(
                         h, context)
             if i != n - 1:
@@ -301,3 +379,33 @@ def tiny_unet() -> UNet2DCondition:
 def nano_unet() -> UNet2DCondition:
     return UNet2DCondition(block_out_channels=(32, 32), layers_per_block=1,
                            attention_heads=1, cross_attention_dim=16)
+
+
+# SDXL base 1.0 (stabilityai/stable-diffusion-xl-base-1.0, unet/config.json)
+SDXL_UNET = dict(
+    block_out_channels=(320, 640, 1280), layers_per_block=2,
+    attention_heads=(5, 10, 20), cross_attention_dim=2048,
+    down_block_types=("DownBlock2D", "CrossAttnDownBlock2D",
+                      "CrossAttnDownBlock2D"),
+    up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D", "UpBlock2D"),
+    transformer_layers_per_block=(1, 2, 10), use_linear_projection=True,
+    addition_embed_type="text_time", addition_time_embed_dim=256,
+    projection_class_embeddings_input_dim=2816)
+
+
+def sdxl_unet() -> UNet2DCondition:
+    return UNet2DCondition(**SDXL_UNET)
+
+
+def tiny_xl_unet() -> UNet2DCondition:
+    """SDXL's structure at CPU-test widths: three levels, level 0 without
+    attention, stacks 0 / 1 / 2 deep, 8-wide heads, linear projections, a
+    32-wide context and pooled embedding, 8-wide time ids."""
+    return UNet2DCondition(
+        block_out_channels=(32, 32, 64), layers_per_block=1,
+        attention_heads=(4, 4, 8), cross_attention_dim=32,
+        down_block_types=SDXL_UNET["down_block_types"],
+        up_block_types=SDXL_UNET["up_block_types"],
+        transformer_layers_per_block=(0, 1, 2), use_linear_projection=True,
+        addition_embed_type="text_time", addition_time_embed_dim=8,
+        projection_class_embeddings_input_dim=32 + 6 * 8)

@@ -122,11 +122,15 @@ class Decoder(nn.Module):
 
 class AutoencoderKL(nn.Module):
     """The SD VAE: encoder + quant_conv, post_quant_conv + decoder (whose
-    up blocks take one resnet more than the encoder's down blocks)."""
+    up blocks take one resnet more than the encoder's down blocks).
+    ``scaling_factor`` (vae/config.json's) scales the latents the UNet
+    sees: 0.18215 for SD v1.x, 0.13025 for SDXL."""
 
     def __init__(self, block_out_channels: Sequence[int] = (128, 256, 512, 512),
-                 layers_per_block: int = 2, latent_channels: int = 4):
+                 layers_per_block: int = 2, latent_channels: int = 4,
+                 scaling_factor: float = 0.18215):
         super().__init__()
+        self.scaling_factor = scaling_factor
         # registered in data-flow order, encoder side first: a random init
         # (sds.init_sd_module) draws the encoder's weights first, so the
         # SDS path's weights do not depend on the decoder's
@@ -164,9 +168,17 @@ def sd15_vae() -> AutoencoderKL:
     return AutoencoderKL()
 
 
-def tiny_vae() -> AutoencoderKL:
+SDXL_SCALING_FACTOR = 0.13025     # SDXL base 1.0's vae/config.json
+
+
+def sdxl_vae() -> AutoencoderKL:
+    """SDXL base 1.0's VAE: SD v1.5's widths, its own latent scale."""
+    return AutoencoderKL(scaling_factor=SDXL_SCALING_FACTOR)
+
+
+def tiny_vae(scaling_factor: float = 0.18215) -> AutoencoderKL:
     return AutoencoderKL(block_out_channels=(32, 32, 64, 64),
-                         layers_per_block=1)
+                         layers_per_block=1, scaling_factor=scaling_factor)
 
 
 def nano_vae() -> AutoencoderKL:

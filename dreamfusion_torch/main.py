@@ -19,7 +19,8 @@ its 360-degree orbit.
 stratified renderer (64 + 64 samples a ray), both with SDS guidance
 unless ``--guidance clip`` (random-tiny CLIP, or a local CLIP directory)
 or ``none``. ``--sd_weights`` names a local diffusers SD directory or
-random models (``random-full``: SD v1.5 widths); unset or
+random models (``random-full``: SD v1.5 widths; ``random-xl``: SDXL
+base 1.0's, 1024² images, 128² latents); unset or
 ``random-full``, a directory found by the probe (``$SD_WEIGHTS_DIR``, the
 mount globs) is loaded, and otherwise unset builds the random-tiny models,
 as the JAX package does;

@@ -11,11 +11,11 @@ runs ``attention_plain``, which autograd differentiates and which is also
 what the kernels are held against on the card.
 
 The forward takes the fused kernel for heads up to ``NARROW_HEAD_DIM``
-wide (the UNet's 40) and the materialized schedule (S, row softmax, P V on
-one wgmma GEMM) for wider ones (the VAE's 512); the backward is
-materialized at every width. Their [pairs, N, Np] scratch is allocated
-here, and the (b, h) pairs are walked in chunks that keep it under
-``SCRATCH_BYTES``.
+wide (SD v1.5's UNet's 40, SDXL's 64) and the materialized schedule (S,
+row softmax, P V on one wgmma GEMM) for wider ones (the VAE's 512); the
+backward is materialized at every width. Their [pairs, N, Np] scratch is
+allocated here, and the (b, h) pairs are walked in chunks that keep it
+under ``SCRATCH_BYTES``.
 """
 
 from __future__ import annotations

@@ -95,6 +95,12 @@ def _pick_K_bucket(q95: float, cap: int) -> int:
     return cap
 
 
+def _text_device(text_z) -> torch.device:
+    """The device of text_z: a tensor, or SDXL's dict of context and pooled
+    embedding."""
+    return (text_z["context"] if isinstance(text_z, dict) else text_z).device
+
+
 def make_grads_fn(cfg: Config, model: _BaseNeRF, guidance: Guidance,
                   grid_K: Optional[int] = None,
                   compact_M: Optional[int] = None):
@@ -119,7 +125,7 @@ def make_grads_fn(cfg: Config, model: _BaseNeRF, guidance: Guidance,
                  generator: Optional[torch.Generator] = None,
                  host_generator: Optional[torch.Generator] = None):
         draws = draws or {}
-        dev = text_z.device
+        dev = _text_device(text_z)
         with trace.span("step/cameras"):
             batch = cameras.sample_train_batch(cfg, generator=generator,
                                                device=dev, draws=draws)
@@ -158,7 +164,11 @@ def make_grads_fn(cfg: Config, model: _BaseNeRF, guidance: Guidance,
 
         pred_rgb = out["image"].reshape(B, cfg.h, cfg.w, 3)
         pred_ws = out["weights_sum"].reshape(B, N)
-        if cfg.dir_text:
+        if isinstance(text_z, dict):        # SDXL: context and pooled
+            idx = (batch["dir"] if cfg.dir_text
+                   else torch.zeros(B, dtype=torch.long, device=dev))
+            tz = {k: z[idx] for k, z in text_z.items()}
+        elif cfg.dir_text:
             tz = text_z[batch["dir"]]
         else:
             tz = text_z[:1].expand((B,) + text_z.shape[1:])
@@ -604,8 +614,10 @@ class Trainer:
 
     # -- text -----------------------------------------------------------------
 
-    def _prepare_text_embeddings(self) -> torch.Tensor:
-        """Per-direction prompts "<text>, <dir> view" (nerf/utils.py:290-319)."""
+    def _prepare_text_embeddings(self):
+        """Per-direction prompts "<text>, <dir> view" (nerf/utils.py:290-319):
+        [n, 2, 77, D], or with SDXL a dict of it ("context") and the pooled
+        embedding [n, 2, P] ("pooled"), indexed together."""
         cfg = self.cfg
         if cfg.text is None or self.guidance.name == "none":
             return torch.zeros(6 if cfg.dir_text else 1, 1, device=self.device)
@@ -618,6 +630,8 @@ class Trainer:
                 neg = (neg + ", " if neg else "") + "face"
             zs.append(self.guidance.get_text_embeds([f"{cfg.text}, {d} view"],
                                                     [neg]))
+        if isinstance(zs[0], dict):         # SDXL: context and pooled
+            return {k: torch.cat([z[k] for z in zs]) for k in zs[0]}
         return torch.cat(zs, dim=0)
 
     def log(self, record: Dict[str, Any]):
