@@ -267,6 +267,8 @@ REPLACES = {
     # no Pallas counterpart: the JAX package's written-out gather
     "grid_sample_fwd": "dreamfusion_tpu/ops/grid_sample.py",
     "grid_sample_bwd": "dreamfusion_tpu/ops/grid_sample.py",
+    # no Pallas counterpart: the JAX package's XLA take and blend
+    "grid_encoder_fwd": "dreamfusion_tpu/ops/grid_encoder.py",
 }
 # kernel A at a level of 4,096 rows stands in for K1b, matmul_scatter_add_oct
 K1B_REPLACES = "dreamfusion_tpu/ops/pallas_scatter.py:645"
@@ -282,23 +284,27 @@ SOURCES = {
     "march_cone": "dreamfusion_torch/csrc/march_cone.cu",
     "grid_sample_fwd": "dreamfusion_torch/csrc/grid_sample.cu",
     "grid_sample_bwd": "dreamfusion_torch/csrc/grid_sample.cu",
+    "grid_encoder_fwd": "dreamfusion_torch/csrc/grid_encoder_fwd.cu",
 }
 # the kernels of each path the script drives
-TRAIN_KERNELS = ("grid_encoder_bwd", "composite_fwd", "composite_bwd",
-                 "attention_fwd", "attention_bwd")
+TRAIN_KERNELS = ("grid_encoder_fwd", "grid_encoder_bwd", "composite_fwd",
+                 "composite_bwd", "attention_fwd", "attention_bwd")
 # (the eval's dense groups, those whose live count fills the K bucket,
 # composite through kernel B-fwd)
-EVAL_KERNELS = ("composite_compact", "probe_select_small", "composite_fwd")
+EVAL_KERNELS = ("grid_encoder_fwd", "composite_compact", "probe_select_small",
+                "composite_fwd")
 # the editing path trains a field without a grid-encoder table
 EDIT_TRAIN_KERNELS = ("composite_fwd", "composite_bwd", "attention_fwd",
                       "attention_bwd")
 EDIT_EVAL_KERNELS = ("composite_compact", "probe_select_small")
-ENCODER_KERNELS = ("grid_encoder_bwd", "grid_encoder_bwd_rows")
+ENCODER_KERNELS = ("grid_encoder_fwd", "grid_encoder_bwd",
+                   "grid_encoder_bwd_rows")
 # DVGO's voxel grids (pretraining, the zoo, the editing field)
 GRID_SAMPLE_KERNELS = ("grid_sample_fwd", "grid_sample_bwd")
 # -O2 (path A) with the grid backbone: kernel A in the field's backward and
 # the flash kernels through SDS; the compositor is plain on this path
-O2_TRAIN_KERNELS = ("grid_encoder_bwd", "attention_fwd", "attention_bwd")
+O2_TRAIN_KERNELS = ("grid_encoder_fwd", "grid_encoder_bwd", "attention_fwd",
+                    "attention_bwd")
 HASHGRID_POINTS = 524_288          # 4,096 rays x K = 128 samples
 
 
@@ -1179,20 +1185,34 @@ def phase_eval(trainer, frames: int = 3):
                 bool(torch.isfinite(v).all()) for v in out.values()):
             raise AssertionError("eval frame of the wrong shape or not finite")
 
-    # frame 1 again (untimed), keeping the inputs of kernels C and D
+    # frame 1 again (untimed), keeping the inputs of kernels C and D and
+    # counting the field queries (one kernel H launch each)
     captured = {"C": {}, "D": None}
     probe_fn = probe.probe_select_small
+    queries = []
 
     def probe_spy(table, idx):
         captured["D"] = (table.clone(), idx.clone())
         return probe_fn(table, idx)
 
+    def encode_spy(x, *args, **kw):
+        queries.append(x.shape[0])
+        return type(trainer.model).encode(trainer.model, x, *args, **kw)
+
     probe.probe_select_small = probe_spy
+    trainer.model.encode = encode_spy
+    h0 = kcuda.launch_counts["grid_encoder_fwd"]
     try:
         with compact_groups(captured["C"]) as groups:
             staged = trainer._render_orbit_frame(1, size, H, W)
     finally:
         probe.probe_select_small = probe_fn
+        del trainer.model.encode
+    h = kcuda.launch_counts["grid_encoder_fwd"] - h0
+    log(f"[eval] frame 1: {len(queries)} field queries of "
+        f"{sum(queries):,} samples, {h} grid_encoder_fwd launches")
+    if h != len(queries) or not queries:
+        raise AssertionError("kernel H must launch once per field query")
     log("[eval] compact budgets (samples in a group: groups) "
         + ", ".join(f"{J:,}: {n}" for J, (n, _) in sorted(captured["C"].items()))
         + f"; classify probes {captured['D'][1].shape[0]:,} into a table of "
@@ -1852,6 +1872,51 @@ def grid_encoder_aggregation(base, cot):
     n = warps.sum(-1).clamp_min(1)
     return ((distinct * warps).sum(-1) / n).tolist(), \
         ((runs * warps).sum(-1) / n).tolist()
+
+
+def check_grid_encoder_fwd(spec, emb, x, label):
+    """Kernel H (the encoder's forward, all levels in one launch) against
+    its plain version on the card (the gather and blend level by level)
+    on positions x: within 1e-6 of the
+    table's largest magnitude (the rows and weights are the plain
+    version's bit for bit; the 8-term sum may be taken in another order),
+    out-of-box rows exactly 0. Device times and launches of both
+    (torch.profiler); byte bound: the positions in and the features out,
+    each once (the table's rows come from L2)."""
+    from dreamfusion_torch.ops import grid_encoder as ge
+
+    B, L = x.shape[0], spec.num_levels
+
+    def plain():
+        xT, oob = spec._unit_positions(x, 1.0)
+        return torch.where(oob[:, None, None], 0.0,
+                           spec._gather_levels(emb, xT))
+
+    kernel = lambda: ge.grid_encoder_fwd_cuda(spec, emb, x, 1.0)  # noqa: E731
+    out, ref = kernel(), plain()
+    oob = (x.abs() > 1.0).any(-1)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    tol = 1e-6 * float(emb.float().abs().max())
+    log(f"[kernels] H grid_encoder_fwd {label}: L={L} B={B:,} ({int(oob.sum()):,} "
+        f"outside the box) T={spec.table_size:,} {emb.dtype} table; "
+        f"max_abs_err {err:.3e} (tol {tol:.3e})")
+    if not err <= tol or bool(out[oob].any()):
+        raise AssertionError(f"kernel H disagrees with its plain version "
+                             f"({label})")
+    ms, launches = device_time_and_launches(kernel)
+    plain_ms, plain_launches = device_time_and_launches(plain, reps=3,
+                                                        warmup=1)
+    nbytes = B * 12 + B * L * 8
+    b_ms, b_by = bound(nbytes, 0)
+    log(f"[kernels] H times ({label}): kernel {ms:.4f} ms ({launches} device "
+        f"launches a call; CUDA events over 20 calls {cuda_ms(kernel):.4f} "
+        f"ms), plain {plain_ms:.4f} ms in {plain_launches} launches, bound "
+        f"{b_ms:.5f} ms ({b_by}; {b_ms / ms:.3f} of it)")
+    return {"shape": f"{label}: L={L} B={B} T={spec.table_size} {emb.dtype}",
+            "max_abs_err": err, "ms": ms, "launches_a_call": launches,
+            "plain_ms": plain_ms, "plain_launches_a_call": plain_launches,
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def check_grid_encoder_rows(spec, x, label, gen, timed: bool):
@@ -3773,6 +3838,7 @@ def phase_kernels(trainer, counts, captured=None, o2_trainer=None,
     their sum. With the o2 phase's trainer, kernel A also at the -O2 step's
     sample positions (every one inside the box); kernel F at the options
     phase's grid (_cone_cases)."""
+    from dreamfusion_torch.ops import marching
     from dreamfusion_torch.ops.grid_encoder import GridEncoderSpec
     from dreamfusion_torch.training.trainer import K_LADDER
 
@@ -3814,6 +3880,17 @@ def phase_kernels(trainer, counts, captured=None, o2_trainer=None,
         a_o2, _ = check_grid_encoder(o2_trainer.model.enc_spec, x_o2, None,
                                      "-O2 steps (all inside)", gen,
                                      timed=True)
+    # kernel H at the staged eval's shape (a group's 131,072 samples of the
+    # bf16 table) and at the occupancy refresh's (a full 128^3 refresh, f32)
+    emb = (spec.init(gen, dev) * 1e3).contiguous()
+    h_eval = check_grid_encoder_fwd(spec, emb.to(torch.bfloat16),
+                                    x_dense[:131_072].contiguous(),
+                                    "eval group")
+    cells, _ = marching.grid_cells(128, None, dev)
+    h_refresh = check_grid_encoder_fwd(
+        spec, emb, cells * (1 - 1 / 128) + (torch.rand(
+            cells.shape, device=dev, generator=gen) * 2 - 1) / 128,
+        "128^3 refresh")
     # kernel E at the hashgrid phase's inputs, and at a 4-level hash spec
     # whose tables are tiny (many updates per row)
     h_spec, _, h_x, _ = _hashgrid_inputs(dev)
@@ -3847,6 +3924,7 @@ def phase_kernels(trainer, counts, captured=None, o2_trainer=None,
                ("grid_encoder_bwd", a_k1b),
                *([("grid_encoder_bwd", a_o2)] if a_o2 is not None else []),
                ("grid_encoder_bwd_rows", e),
+               ("grid_encoder_fwd", h_eval), ("grid_encoder_fwd", h_refresh),
                ("composite_fwd", bf),
                ("composite_bwd", bb), ("attention_fwd", unet_attn["fwd"]),
                ("attention_fwd", vae_attn["fwd"]),

@@ -40,6 +40,7 @@ BUILD_DIR = PKG_DIR / "build"
 # library -> source file (under csrc/)
 SOURCES = {
     "grid_encoder_bwd": "grid_encoder_bwd.cu",
+    "grid_encoder_fwd": "grid_encoder_fwd.cu",
     "fused_composite": "fused_composite.cu",
     "flash_attention": "flash_attention.cu",
     "probe_select": "probe_select.cu",
@@ -55,6 +56,7 @@ CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared", "-Wall"]
 launch_counts: Dict[str, int] = {
     "grid_encoder_bwd": 0,
     "grid_encoder_bwd_rows": 0,
+    "grid_encoder_fwd": 0,
     "composite_fwd": 0,
     "composite_bwd": 0,
     "composite_compact": 0,

@@ -15,20 +15,26 @@ JAX package exactly:
 - per-level table sizes capped at 2**log2_hashmap_size, rounded up to a
   multiple of 8, flat [T, C] table; init U(-1e-4, 1e-4).
 
-The forward is a plain gather plus trilinear blend (the JAX forward is XLA
-``take``, not a Pallas kernel). Which backward an encoder takes follows the
-JAX package (grid_encoder.py:461-464, 513-524):
+The forward of a CUDA tensor is kernel H (csrc/grid_encoder_fwd.cu), every
+level in one launch from the positions and the level table of kernel E;
+on the CPU it is the plain gather plus trilinear blend that kernel H
+follows (the JAX forward is XLA ``take``, not a Pallas kernel). The
+backward's residuals are built only where autograd will read them: grad
+enabled and a table that requires grad. Under no_grad (the staged eval,
+the occupancy refresh, the mesh export) kernel H alone runs. Which backward
+an encoder takes follows the JAX package (grid_encoder.py:461-464,
+513-524):
 - every level affine (the tiled grid, or a hash spec so small that no level
   hashes): corner c of a sample with corner-0 row ``base`` lives at
   ``(base + corner_off_c) % size``. ``_EncodeLevels.backward`` launches
   kernel A (csrc/grid_encoder_bwd.cu) on CUDA and runs
   ``grid_encoder_bwd_plain`` on the CPU;
 - any level hashed: every corner of every level goes through the index
-  function (a hashed corner is not ``base + offset``). The forward gathers
-  level by level and keeps only the unit positions ``x01`` [B, D] for the
-  backward; ``_EncodeLevelsRows.backward`` launches kernel E (the second
-  entry of csrc/grid_encoder_bwd.cu), which forms the corners, weights and
-  rows from ``x01`` itself, on CUDA, and on the CPU rebuilds the rows
+  function (a hashed corner is not ``base + offset``). The forward keeps
+  only the unit positions ``x01`` [B, D] for the backward;
+  ``_EncodeLevelsRows.backward`` launches kernel E (the second entry of
+  csrc/grid_encoder_bwd.cu), which forms the corners, weights and rows
+  from ``x01`` itself, on CUDA, and on the CPU rebuilds the rows
   ``[L, 8, B]`` (``corner_rows``) for ``grid_encoder_bwd_rows_plain``;
 - ``differentiable_inputs=True``: plain autograd through the gather, which
   also gives d(out)/d(position) with d(frac)/dx = scale (the reference's
@@ -289,26 +295,42 @@ class GridEncoderSpec:
             outs.append((w8[..., None] * vals.float()).sum(0))
         return torch.stack(outs, dim=1)
 
+    def encode(self, embeddings: torch.Tensor, x: torch.Tensor,
+               bound: float = 1.0) -> torch.Tensor:
+        """Positions [B, D] -> [B, L, C] f32 features, zero outside the
+        box, with no residuals: kernel H on CUDA, the plain gather on the
+        CPU."""
+        if embeddings.is_cuda or x.is_cuda:
+            return grid_encoder_fwd_cuda(self, embeddings, x, bound)
+        xT, oob = self._unit_positions(x, bound)
+        out = self._gather_levels(embeddings, xT)
+        return torch.where(oob[:, None, None], 0.0, out)
+
     def __call__(self, embeddings: torch.Tensor, inputs: torch.Tensor,
                  bound: float = 1.0) -> torch.Tensor:
         """Encode positions in [-bound, bound] -> [..., L*C] features."""
         prefix = inputs.shape[:-1]
+        x = inputs.reshape(-1, self.input_dim).float().contiguous()
         if self.differentiable_inputs:
             # plain autograd: the gather's transpose is the table gradient,
             # and the weights carry d/d(position)
-            xT, oob = self._unit_positions(inputs, bound)
+            xT, oob = self._unit_positions(x, bound)
             out = self._gather_levels(embeddings, xT)
+        elif not (torch.is_grad_enabled() and embeddings.requires_grad):
+            return self.encode(embeddings, x, bound).reshape(
+                *prefix, self.output_dim)
         elif any(self.hashed_levels):
             with torch.no_grad():
-                xT, oob = self._unit_positions(inputs, bound)
-            out = _EncodeLevelsRows.apply(embeddings, xT.t(), self)
+                xT, oob = self._unit_positions(x, bound)
+            out = _EncodeLevelsRows.apply(embeddings, x, bound, xT.t(), self)
         else:
             with torch.no_grad():
-                base_all, w_all, oob = self.residuals(inputs, bound)
-            out = _EncodeLevels.apply(embeddings, base_all, w_all,
-                                      _level_consts(self, embeddings.device))
-        out = out.reshape(out.shape[0], -1)
-        out = torch.where(oob[:, None], torch.zeros_like(out), out)
+                base_all, w_all, oob = self.residuals(x, bound)
+            out = _EncodeLevels.apply(embeddings, x, bound, base_all, w_all,
+                                      self)
+        # zero outside the box; with a custom backward this also zeroes
+        # those samples' cotangent, which the backward kernels then skip
+        out = torch.where(oob[:, None, None], 0.0, out)
         return out.reshape(*prefix, self.output_dim)
 
 
@@ -402,13 +424,17 @@ def grid_encoder_bwd(base_all, w_all, cot, consts: _LevelConsts):
 
 
 class _EncodeLevels(torch.autograd.Function):
-    """emb [T, C], base_all [L, B], w_all [L, 8, B] -> [B, L, C]."""
+    """emb [T, C], positions x [B, D], their residuals base_all [L, B] and
+    w_all [L, 8, B] -> [B, L, C]; the residuals are kernel A's inputs."""
 
     @staticmethod
-    def forward(ctx, emb, base_all, w_all, consts):
+    def forward(ctx, emb, x, bound, base_all, w_all, spec):
+        consts = _level_consts(spec, emb.device)
         ctx.save_for_backward(base_all, w_all)
         ctx.consts = consts
         ctx.emb_dtype = emb.dtype
+        if emb.is_cuda:
+            return grid_encoder_fwd_cuda(spec, emb, x, bound)
         return encode_fwd(emb, base_all, w_all, consts)
 
     @staticmethod
@@ -416,7 +442,7 @@ class _EncodeLevels(torch.autograd.Function):
         base_all, w_all = ctx.saved_tensors
         d = grid_encoder_bwd(base_all, w_all, cot.float().contiguous(),
                              ctx.consts)
-        return d.to(ctx.emb_dtype), None, None, None
+        return d.to(ctx.emb_dtype), None, None, None, None, None
 
 
 # -- encoders with a hashed level: the residual is the unit positions -----------
@@ -438,6 +464,15 @@ def grid_encoder_bwd_rows_plain(rows, w_all, cot, total: int) -> torch.Tensor:
 _ROWS_TABLES: Dict[Tuple[GridEncoderSpec, str], torch.Tensor] = {}
 
 
+def _rows_table(spec: GridEncoderSpec, device: torch.device) -> torch.Tensor:
+    """spec.rows_level_table on `device`, built once per (spec, device): the
+    constant table of kernels E and H."""
+    key = (spec, str(device))
+    if key not in _ROWS_TABLES:
+        _ROWS_TABLES[key] = spec.rows_level_table(device)
+    return _ROWS_TABLES[key]
+
+
 def grid_encoder_bwd_rows_cuda(spec: GridEncoderSpec, x01: torch.Tensor,
                                cot: torch.Tensor) -> torch.Tensor:
     """Kernel E: the table gradient [T, 2] of an encoder with a hashed level
@@ -450,12 +485,9 @@ def grid_encoder_bwd_rows_cuda(spec: GridEncoderSpec, x01: torch.Tensor,
     cuda.require(cot, "cot", torch.float32, (B, L, 2), dev)
     if spec.input_dim != 3 or spec.level_dim != 2:
         raise ValueError("kernel E takes 3-D positions and 2 features a level")
-    key = (spec, str(dev))
-    if key not in _ROWS_TABLES:
-        _ROWS_TABLES[key] = spec.rows_level_table(dev)
     d = torch.zeros(spec.table_size, 2, device=dev, dtype=torch.float32)
     err = _lib().grid_encoder_bwd_rows(x01.data_ptr(), cot.data_ptr(),
-                                       _ROWS_TABLES[key].data_ptr(),
+                                       _rows_table(spec, dev).data_ptr(),
                                        d.data_ptr(), L, B,
                                        cuda.stream_ptr(dev))
     cuda.check_launch(err, "grid_encoder_bwd_rows")
@@ -471,17 +503,57 @@ def grid_encoder_bwd_rows(spec: GridEncoderSpec, x01, cot):
 
 
 class _EncodeLevelsRows(torch.autograd.Function):
-    """emb [T, C], x01 [B, D] unit positions -> [B, L, C]; x01 is the only
-    residual (the rows and weights of the forward's gather are freed)."""
+    """emb [T, C], positions x [B, D] and their unit positions x01 [B, D]
+    -> [B, L, C]; x01 is the only residual (the rows and weights of the
+    forward's gather are never kept)."""
 
     @staticmethod
-    def forward(ctx, emb, x01, spec):
+    def forward(ctx, emb, x, bound, x01, spec):
         ctx.save_for_backward(x01)
         ctx.spec, ctx.emb_dtype = spec, emb.dtype
+        if emb.is_cuda:
+            return grid_encoder_fwd_cuda(spec, emb, x, bound)
         return spec._gather_levels(emb, x01.t())
 
     @staticmethod
     def backward(ctx, cot):
         (x01,) = ctx.saved_tensors
         d = grid_encoder_bwd_rows(ctx.spec, x01, cot.float().contiguous())
-        return d.to(ctx.emb_dtype), None, None
+        return d.to(ctx.emb_dtype), None, None, None, None
+
+
+# -- kernel H: the forward of every spec, all levels in one launch ------------
+
+def _fwd_lib():
+    lib = cuda.library("grid_encoder_fwd")
+    if not getattr(lib, "_typed", False):
+        lib.grid_encoder_fwd.argtypes = [_VP, _VP, _I, _VP, _VP,
+                                         ctypes.c_float, ctypes.c_float,
+                                         _I, _I, _VP]
+        lib.grid_encoder_fwd.restype = _I
+        lib._typed = True
+    return lib
+
+
+def grid_encoder_fwd_cuda(spec: GridEncoderSpec, emb: torch.Tensor,
+                          x: torch.Tensor, bound: float) -> torch.Tensor:
+    """Kernel H: features [B, L, 2] f32 of positions x [B, 3] f32 in
+    [-bound, bound] from the table emb [T, 2] (f32 or bf16), zero outside
+    the box; same contract as spec.encode on the CPU (the plain gather and
+    blend, _gather_levels)."""
+    B, L = x.shape[0], spec.num_levels
+    dev = x.device
+    if spec.input_dim != 3 or spec.level_dim != 2:
+        raise ValueError("kernel H takes 3-D positions and 2 features a level")
+    if emb.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"kernel H reads an f32 or bf16 table, got {emb.dtype}")
+    cuda.require(x, "x", torch.float32, (B, 3))
+    cuda.require(emb, "table", emb.dtype, (spec.table_size, 2), dev)
+    out = torch.empty(B, L, 2, device=dev, dtype=torch.float32)
+    err = _fwd_lib().grid_encoder_fwd(
+        x.data_ptr(), emb.data_ptr(), int(emb.dtype == torch.bfloat16),
+        _rows_table(spec, dev).data_ptr(), out.data_ptr(), bound,
+        2.0 * bound, L, B, cuda.stream_ptr(dev))
+    cuda.check_launch(err, "grid_encoder_fwd")
+    cuda.launch_counts["grid_encoder_fwd"] += 1
+    return out

@@ -929,3 +929,177 @@ def test_dvgo_render_launches_kernel_g_twice_each_way(dev, monkeypatch):
     assert abs(loss - loss_p) <= 1e-6 * abs(loss_p)
     for k, gp in grads_p.items():
         assert (grads[k] - gp).abs().max() <= 1e-5 * gp.abs().max(), k
+
+
+def _encode_points(spec, B, seed):
+    """x [B, 3] f32 for bound 1: a quarter uniform in the box, a quarter
+    within one ulp of a lattice point of the finest level (x01 = (m -
+    shift) / scale for an integer m, then x = 2 x01 - 1 moved by -1, 0 or
+    +1 ulp), an eighth on the box's corners (every coordinate +-1), an
+    eighth with one coordinate +-1, a quarter with one coordinate outside
+    the box."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1, 1, (B, 3))
+    q = B // 4
+    scale, res = spec.geometry[0][-1], spec.geometry[1][-1]
+    m = rng.integers(1, res, (q, 3))
+    near = ((m - 0.5) / scale * 2 - 1).astype(np.float32)
+    step = rng.integers(-1, 2, (q, 3))
+    near = np.where(step > 0, np.nextafter(near, np.float32(2)),
+                    np.where(step < 0, np.nextafter(near, np.float32(-2)),
+                             near))
+    x[q:2 * q] = near
+    e = q // 2
+    x[2 * q:2 * q + e] = np.where(rng.uniform(size=(e, 3)) < 0.5, -1.0, 1.0)
+    rows = np.arange(2 * q + e, 3 * q)
+    x[rows, rng.integers(0, 3, rows.size)] = np.where(
+        rng.uniform(size=rows.size) < 0.5, -1.0, 1.0)
+    rows = np.arange(3 * q, B)
+    x[rows, rng.integers(0, 3, rows.size)] = (
+        np.where(rng.uniform(size=rows.size) < 0.5, -1.0, 1.0)
+        * rng.uniform(1.0001, 1.3, rows.size))
+    return torch.from_numpy(x.astype(np.float32))
+
+
+@pytest.mark.parametrize("spec_kw,dtype", [
+    (dict(_MAIN, **_TILED), torch.float32),
+    (dict(_MAIN, **_TILED), torch.bfloat16),
+    (dict(gridtype="hash", log2_hashmap_size=19), torch.float32)],
+    ids=["-O tiled spec, f32 table", "-O tiled spec, bf16 table",
+         "hash spec 2^19, f32 table"])
+def test_grid_encoder_fwd_kernel_matches_plain(dev, spec_kw, dtype):
+    """Kernel H vs its plain version (the CPU gather and blend level by
+    level) on uniform points, points within one ulp of a lattice point of
+    the finest level (an FMA or another floor would move their weights),
+    points on +-bound and points outside the box; B = 100,003, so neither
+    B nor B L is a multiple of the block. The corner rows and weights are
+    the plain version's bit for bit and each product is rounded alike, so
+    only the order of the 8-term sum differs: a few ulps of the largest
+    term, held to 1e-6 of the table's largest magnitude. Out-of-box rows
+    are exactly 0."""
+    from dreamfusion_torch.ops import cuda as kcuda
+    from dreamfusion_torch.ops import grid_encoder as ge
+
+    spec = ge.GridEncoderSpec(**spec_kw)
+    rng = np.random.default_rng(21)
+    emb = torch.from_numpy(rng.uniform(-0.1, 0.1, (spec.table_size, 2))
+                           .astype(np.float32)).to(dtype)
+    B = 100_003
+    x = _encode_points(spec, B, 22)
+    ref = spec.encode(emb, x)
+    n0 = kcuda.launch_counts["grid_encoder_fwd"]
+    got = ge.grid_encoder_fwd_cuda(spec, emb.to(dev), x.to(dev), 1.0)
+    torch.cuda.synchronize()
+    assert kcuda.launch_counts["grid_encoder_fwd"] == n0 + 1
+    assert got.shape == (B, spec.num_levels, 2) and got.dtype == torch.float32
+    got = got.cpu()
+    oob = (x.abs() > 1).any(-1)
+    assert int(oob.sum()) == B - 3 * (B // 4)
+    assert torch.equal(got[oob], torch.zeros_like(got[oob]))
+    assert got[~oob].abs().max() > 0
+    assert (got - ref).abs().max() <= 1e-6 * emb.float().abs().max()
+
+
+def test_grid_encoder_fwd_kernel_refuses_bad_inputs(dev):
+    """A CUDA tensor launches kernel H or raises: a half-precision table,
+    float64 positions handed to the kernel's wrapper, positions left on
+    the CPU and a 2-D spec are refused before any launch."""
+    from dreamfusion_torch.ops import cuda as kcuda
+    from dreamfusion_torch.ops import grid_encoder as ge
+
+    spec = ge.GridEncoderSpec(**_MAIN, **_TILED)
+    emb = torch.zeros(spec.table_size, 2, device=dev)
+    x = torch.zeros(8, 3, device=dev)
+    n0 = kcuda.launch_counts["grid_encoder_fwd"]
+    with pytest.raises(TypeError):
+        spec(emb.half(), x)
+    with pytest.raises(TypeError):
+        ge.grid_encoder_fwd_cuda(spec, emb, x.double(), 1.0)
+    with pytest.raises(ValueError):
+        spec(emb, x.cpu())
+    flat = ge.GridEncoderSpec(input_dim=2, num_levels=2)
+    with pytest.raises(ValueError):
+        flat(torch.zeros(flat.table_size, 2, device=dev), x[:, :2])
+    assert kcuda.launch_counts["grid_encoder_fwd"] == n0
+
+
+@pytest.mark.parametrize("spec_kw", [dict(_MAIN, **_TILED),
+                                     dict(gridtype="hash")],
+                         ids=["-O tiled spec", "hash spec"])
+def test_grid_encoder_call_builds_residuals_only_for_autograd(dev, spec_kw,
+                                                              monkeypatch):
+    """Through the encoder on the card: under no_grad one kernel H launch
+    and no residuals (residuals and residuals_rows raise); with grad one
+    kernel H launch for the same output bit for bit, and one backward
+    kernel (A for the tiled spec, E for the hashed) in the backward."""
+    from dreamfusion_torch.ops import cuda as kcuda
+    from dreamfusion_torch.ops import grid_encoder as ge
+
+    spec = ge.GridEncoderSpec(**spec_kw)
+    g = torch.Generator(device=dev).manual_seed(23)
+    emb = spec.init(g, dev).requires_grad_(True)
+    x = (torch.rand(50_000, 3, device=dev, generator=g) * 2 - 1) * 1.05
+    bwd = "grid_encoder_bwd_rows" if any(spec.hashed_levels) \
+        else "grid_encoder_bwd"
+    n0 = dict(kcuda.launch_counts)
+    out = spec(emb, x)
+    out.sum().backward()
+    n1 = dict(kcuda.launch_counts)
+    assert n1["grid_encoder_fwd"] == n0["grid_encoder_fwd"] + 1
+    assert n1[bwd] == n0[bwd] + 1
+
+    def boom(*a, **k):
+        raise AssertionError("residuals built under no_grad")
+
+    for name in ("residuals", "residuals_rows"):
+        monkeypatch.setattr(ge.GridEncoderSpec, name, boom)
+    with torch.no_grad():
+        got = spec(emb, x)
+    torch.cuda.synchronize()
+    assert kcuda.launch_counts["grid_encoder_fwd"] == n1["grid_encoder_fwd"] + 1
+    assert torch.equal(got, out.detach())
+
+
+def test_staged_eval_frame_launches_kernel_h_once_per_field_query(
+        dev, monkeypatch):
+    """One staged-eval frame (32 x 32, groups of 256 rays, bf16 table) of a
+    small grid field: kernel H launches once per field query and neither
+    backward kernel launches; no residuals are built."""
+    from dreamfusion_torch import cameras
+    from dreamfusion_torch.config import Config
+    from dreamfusion_torch.models.networks import build_model
+    from dreamfusion_torch.ops import cuda as kcuda
+    from dreamfusion_torch.ops import grid_encoder as ge
+    from dreamfusion_torch.ops import marching
+    from dreamfusion_torch.training import trainer as tr
+
+    cfg = Config(text="x", grid_ray=True, grid_size=32, max_steps=64,
+                 grid_K=32, H=32, W=32, max_ray_batch=256,
+                 eval_table_bf16=True)
+    g = torch.Generator(device=dev).manual_seed(24)
+    model = build_model(cfg, dev, g)
+    with torch.no_grad():
+        model.embeddings.uniform_(-0.1, 0.1, generator=g)
+    gs = marching.update_grid(
+        model.density, marching.init_grid_state(cfg.cascade, cfg.grid_size,
+                                                dev),
+        bound=cfg.bound, density_thresh=cfg.density_thresh, generator=g)
+    b = cameras.sample_test_batch(0, 10, cfg, device=dev)
+    render = tr.make_staged_grid_eval(cfg, model, cfg.H, cfg.W)
+
+    def boom(*a, **k):
+        raise AssertionError("residuals built in the staged eval")
+
+    for name in ("residuals", "residuals_rows"):
+        monkeypatch.setattr(ge.GridEncoderSpec, name, boom)
+    queries = []
+    encode = model.encode
+    monkeypatch.setattr(model, "encode", lambda *a, **k: (
+        queries.append(a[0].shape[0]), encode(*a, **k))[1])
+    n0 = dict(kcuda.launch_counts)
+    out = render(b["rays_o"][0], b["rays_d"][0], gs)
+    torch.cuda.synchronize()
+    launched = {k: v - n0[k] for k, v in kcuda.launch_counts.items()}
+    assert queries and launched["grid_encoder_fwd"] == len(queries)
+    assert launched["grid_encoder_bwd"] == launched["grid_encoder_bwd_rows"] == 0
+    assert float(out["weights_sum"].max()) > 1e-3

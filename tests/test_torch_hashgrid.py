@@ -336,6 +336,107 @@ def test_differentiable_inputs_match_jax(gridtype):
     assert x2.grad is None
 
 
+# the -O field's tiled spec (903,480 rows) and a hash spec whose levels are
+# all affine
+TILED_O = dict(num_levels=16, log2_hashmap_size=16, desired_resolution=2048,
+               gridtype="tiled")
+AFFINE_HASH = dict(num_levels=3, base_resolution=4, log2_hashmap_size=19)
+ENCODE_CASES = {"tiled -O, f32 table": (TILED_O, torch.float32),
+                "tiled -O, bf16 table": (TILED_O, torch.bfloat16),
+                "hash, small": (SMALL, torch.float32),
+                "hash, default": (DEFAULT, torch.float32)}
+
+
+def _table(ts, seed):
+    rng = np.random.default_rng(seed)
+    return _t(rng.uniform(-0.1, 0.1, (ts.table_size, 2)).astype(np.float32))
+
+
+@pytest.mark.parametrize("case", list(ENCODE_CASES))
+def test_no_grad_encode_builds_no_residuals(case, monkeypatch):
+    """Under no_grad, and with grad on but a table that needs none, the
+    encoder takes the residual-free forward (kernel H's plain version):
+    residuals, residuals_rows and both autograd functions raise if called.
+    Its output is bitwise the grad path's, on cell faces, box faces and
+    outside the box, whose rows read exactly 0."""
+    kw, dtype = ENCODE_CASES[case]
+    ts = TSpec(**kw)
+    et = _table(ts, 11).requires_grad_(True)
+    x = _t(_face_points(ts, 512, 12))
+    oob = (x.abs() > 1).any(-1)
+    ref = ts(et.to(dtype), x)
+    assert ref.requires_grad and oob.any()
+
+    def boom(*a, **k):
+        raise AssertionError("residuals built for a forward without grad")
+
+    for name in ("residuals", "residuals_rows"):
+        monkeypatch.setattr(TSpec, name, boom)
+    for fn in (tge._EncodeLevels, tge._EncodeLevelsRows):
+        monkeypatch.setattr(fn, "apply", boom)
+    with torch.no_grad():
+        got = ts(et.to(dtype), x)
+    frozen = ts(et.detach().to(dtype), x)
+    assert torch.equal(got, ref.detach()) and torch.equal(frozen, got)
+    assert not got[oob].any() and got[~oob].any()
+
+
+@pytest.mark.parametrize("name", ["tiled -O", "small", "default"])
+def test_table_grad_is_the_plain_backward_of_the_residuals(name):
+    """With grad, the table gradient is unchanged by the residual-free
+    forward: bitwise the plain backward on the residuals (kernel A's
+    grid_encoder_bwd_plain on residuals() for the tiled spec, kernel E's
+    grid_encoder_bwd_rows_plain on corner_rows(x01) for a hashed one), the
+    cotangent of out-of-box samples zero; and plain autograd through the
+    gather (differentiable_inputs) to 1e-5 of its largest entry (another
+    summation order)."""
+    kw = TILED_O if name == "tiled -O" else SPECS[name]
+    ts = TSpec(**kw)
+    B, L = 512, ts.num_levels
+    et = _table(ts, 13).requires_grad_(True)
+    x = _t(_face_points(ts, B, 14))
+    cot = _t(np.random.default_rng(15).normal(size=(B, ts.output_dim))
+             .astype(np.float32))
+    (ts(et, x) * cot).sum().backward()
+    xT, oob = ts._unit_positions(x, 1.0)
+    cot_in = torch.where(oob[:, None], 0.0, cot).reshape(B, L, 2)
+    if any(ts.hashed_levels):
+        d = tge.grid_encoder_bwd_rows_plain(*ts.corner_rows(xT.t()), cot_in,
+                                            ts.table_size)
+    else:
+        base, w, _ = ts.residuals(x)
+        d = tge.grid_encoder_bwd_plain(base, w, cot_in,
+                                       tge._level_consts(ts, x.device))
+    assert torch.equal(et.grad, d) and d.abs().max() > 0
+    ep = _table(ts, 13).requires_grad_(True)
+    (TSpec(**kw, differentiable_inputs=True)(ep, x) * cot).sum().backward()
+    assert (ep.grad - d).abs().max() <= 1e-5 * d.abs().max()
+
+
+@pytest.mark.parametrize("kw,dtype", [
+    (TILED_O, torch.float32), (TILED_O, torch.bfloat16),
+    (AFFINE_HASH, torch.float32)],
+    ids=["tiled -O, f32 table", "tiled -O, bf16 table",
+         "hash without a hashed level"])
+def test_cpu_encode_is_encode_fwd_of_the_residuals(kw, dtype):
+    """On the CPU the forward without residuals (the plain gather level by
+    level, kernel H's plain version) is bitwise the composition of
+    residuals() and encode_fwd with the out-of-box rows zeroed, for specs
+    whose levels are all affine."""
+    ts = TSpec(**kw)
+    assert not any(ts.hashed_levels)
+    emb = _table(ts, 16).to(dtype)
+    x = _t(_face_points(ts, 1024, 17))
+    base, w, oob = ts.residuals(x)
+    ref = tge.encode_fwd(emb, base, w, tge._level_consts(ts, x.device))
+    ref = torch.where(oob[:, None, None], 0.0, ref)
+    got = ts.encode(emb, x)
+    assert got.shape == (1024, ts.num_levels, 2) and got.dtype == torch.float32
+    assert torch.equal(got, ref) and oob.any()
+    with torch.no_grad():
+        assert torch.equal(ts(emb, x), ref.reshape(1024, -1))
+
+
 @pytest.mark.parametrize("encoding,out_dim", [
     ("None", 3), ("frequency", 39), ("sphere_harmonics", 16),
     ("hashgrid", 32), ("tiledgrid", 32)])
