@@ -244,6 +244,8 @@ import time
 import numpy as np
 import torch
 
+from dreamfusion_torch.ops import cuda as kcuda
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12         # float32 outside the tensor cores
@@ -272,20 +274,9 @@ REPLACES = {
 }
 # kernel A at a level of 4,096 rows stands in for K1b, matmul_scatter_add_oct
 K1B_REPLACES = "dreamfusion_tpu/ops/pallas_scatter.py:645"
-SOURCES = {
-    "grid_encoder_bwd": "dreamfusion_torch/csrc/grid_encoder_bwd.cu",
-    "grid_encoder_bwd_rows": "dreamfusion_torch/csrc/grid_encoder_bwd.cu",
-    "composite_fwd": "dreamfusion_torch/csrc/fused_composite.cu",
-    "composite_bwd": "dreamfusion_torch/csrc/fused_composite.cu",
-    "attention_fwd": "dreamfusion_torch/csrc/flash_attention.cu",
-    "attention_bwd": "dreamfusion_torch/csrc/flash_attention.cu",
-    "composite_compact": "dreamfusion_torch/csrc/fused_composite.cu",
-    "probe_select_small": "dreamfusion_torch/csrc/probe_select.cu",
-    "march_cone": "dreamfusion_torch/csrc/march_cone.cu",
-    "grid_sample_fwd": "dreamfusion_torch/csrc/grid_sample.cu",
-    "grid_sample_bwd": "dreamfusion_torch/csrc/grid_sample.cu",
-    "grid_encoder_fwd": "dreamfusion_torch/csrc/grid_encoder_fwd.cu",
-}
+# kernel (launch_counts key) -> its source, from ops/cuda.py's table
+SOURCES = {e.counter: f"dreamfusion_torch/csrc/{kcuda.SOURCES[e.library]}"
+           for e in kcuda.ENTRIES.values() if e.counter is not None}
 # the kernels of each path the script drives
 TRAIN_KERNELS = ("grid_encoder_fwd", "grid_encoder_bwd", "composite_fwd",
                  "composite_bwd", "attention_fwd", "attention_bwd")
@@ -370,8 +361,6 @@ def device_time_and_launches(fn, reps: int = 20, warmup: int = 3):
     call are the counted ones (None where fn launches none of the port's
     kernels)."""
     from torch.profiler import ProfilerActivity, profile, schedule
-
-    from dreamfusion_torch.ops import cuda as kcuda
 
     sources = _own_kernels()
     for _ in range(3):
@@ -458,8 +447,6 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
 # -- phases ---------------------------------------------------------------------
 
 def phase_build():
-    from dreamfusion_torch.ops import cuda as kcuda
-
     t0 = time.perf_counter()
     secs = kcuda.build()
     log(f"[build] nvcc {kcuda.NVCC_FLAGS}, {os.environ.get('CXX', 'g++')} "
@@ -539,7 +526,6 @@ def phase_small():
     from dreamfusion_torch.guidance.sd import layers
     from dreamfusion_torch.guidance.sd.sds import build_sd_guidance, sd_guidance
     from dreamfusion_torch.models.networks import build_model
-    from dreamfusion_torch.ops import cuda as kcuda
     from dreamfusion_torch import renderer
     from dreamfusion_torch.ops import fused_composite as fc
     from dreamfusion_torch.ops import marching
@@ -900,7 +886,6 @@ def phase_options(guidance=None, steps: int = 10, warmup: int = 2,
 
     from dreamfusion_torch import cameras
     from dreamfusion_torch.config import parse_config
-    from dreamfusion_torch.ops import cuda as kcuda
     from dreamfusion_torch.parallel.jobs import direct_frame
     from dreamfusion_torch.training import trainer as tr_mod
     from dreamfusion_torch.training.optimizers import ema_update
@@ -1129,7 +1114,6 @@ def phase_eval(trainer, frames: int = 3):
     Each timed frame ends its stages in a device sync. Classify and march
     end in a host transfer anyway, so the syncs add little; frames/s is
     read from the synced frames so that the stage walls sum to it."""
-    from dreamfusion_torch.ops import cuda as kcuda
     from dreamfusion_torch.ops import marching, probe
 
     cfg = trainer.cfg
@@ -1234,7 +1218,6 @@ def compact_groups(keep=None):
     which must be equal; keep (a dict) receives, for each budget M, a copy
     of the inputs of its group with the most samples, as {M: (calls,
     (samples, cmap, N, T_thresh))}."""
-    from dreamfusion_torch.ops import cuda as kcuda
     from dreamfusion_torch.ops import marching
 
     fn = marching.composite_compact
@@ -1337,7 +1320,6 @@ def _hashgrid_inputs(dev):
 def phase_hashgrid(steps: int = 3):
     """The hash grid encoder at its default spec: `steps` Adam steps of the
     table toward a fixed target. Returns the launch counts."""
-    from dreamfusion_torch.ops import cuda as kcuda
 
     dev = torch.device("cuda")
     spec, out_dim, x, gen = _hashgrid_inputs(dev)
@@ -1431,7 +1413,6 @@ def phase_edit(guidance=None, steps: int = 10, warmup: int = 2):
     import shutil
 
     from dreamfusion_torch.config import parse_config
-    from dreamfusion_torch.ops import cuda as kcuda
     from dreamfusion_torch.training.trainer import Trainer
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_edit_")
@@ -1547,7 +1528,6 @@ def _train_timed(trainer, steps: int, warmup: int):
     set to 0 just before and read just after the whole run, peak memory
     from its start. Returns (steps/s after the warm-up, counts, losses,
     log records, peak GiB)."""
-    from dreamfusion_torch.ops import cuda as kcuda
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1646,7 +1626,6 @@ def phase_o2(guidance=None, steps: int = 10, warmup: int = 2,
     import shutil
 
     from dreamfusion_torch.config import parse_config
-    from dreamfusion_torch.ops import cuda as kcuda
     from dreamfusion_torch.training.trainer import Trainer
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_o2_")
@@ -2600,7 +2579,6 @@ def phase_txt2img(guidance, size: int = 512):
     MID_ATTN_CONTROL_X times its rounding control. Returns the launch
     counts of the three runs."""
     from dreamfusion_torch.guidance.sd import layers, pipeline
-    from dreamfusion_torch.ops import cuda as kcuda
     from dreamfusion_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
@@ -2767,7 +2745,6 @@ def phase_export(trainer, frames: int = 2, resolution: int = 256,
     `points` lattice points against the field on the CPU (a copy of the
     params): as trained (bf16 MLPs) to rtol 5e-2 / atol 2e-2, and with both
     copies in f32 to 1e-4 / 1e-5."""
-    from dreamfusion_torch.ops import cuda as kcuda
 
     cfg = trainer.cfg
     torch.cuda.synchronize()
@@ -2855,7 +2832,6 @@ def phase_gui(guidance=None, bursts: int = 3):
     burst's size and ms, each preview's resolution, ms and spp."""
     from dreamfusion_torch.apps.gui import NeRFGUICore
     from dreamfusion_torch.config import parse_config
-    from dreamfusion_torch.ops import cuda as kcuda
     from dreamfusion_torch.training.trainer import Trainer
 
     ws = tempfile.mkdtemp(prefix="chip_smoke_gui_")
@@ -3026,7 +3002,6 @@ def phase_pretrain(guidance=None, coarse_iters: int = 300,
     from dreamfusion_torch.config import parse_config
     from dreamfusion_torch.datasets import load_data
     from dreamfusion_torch.models.kailu import DVGOEditNetwork
-    from dreamfusion_torch.ops import cuda as kcuda
     from dreamfusion_torch.training.dvgo_trainer import DVGOTrainer
     from dreamfusion_torch.training.image_renderer import (ImageRenderer,
                                                            load_dvgo_field)
@@ -3344,7 +3319,6 @@ def phase_sd_dir(steps: int = 5):
     from dreamfusion_torch.guidance.sd.convert import load_module_dir
     from dreamfusion_torch.guidance.sd.probe import find_sd_weights
     from dreamfusion_torch.guidance.tokenizer import CLIPBPETokenizer
-    from dreamfusion_torch.ops import cuda as kcuda
     from dreamfusion_torch.training.trainer import Trainer
     from dreamfusion_torch.weights import load_hf_clip
 
@@ -3620,7 +3594,6 @@ def phase_zoo(data, steps: int = 5, warmup: int = 2):
     the JAX package must. Returns the launch counts of the training steps
     (kernel G's alone)."""
     from dreamfusion_torch.models.zoo import get_field
-    from dreamfusion_torch.ops import cuda as kcuda
     from dreamfusion_torch.training.dvgo_trainer import (DVGOStageConfig,
                                                          DVGOTrainer)
     from dreamfusion_torch.training.nerf_pipeline import _loader
@@ -3732,7 +3705,6 @@ def phase_jobs(scene: str):
     import shutil
 
     from dreamfusion_torch.examples import edit_scene
-    from dreamfusion_torch.ops import cuda as kcuda
     from dreamfusion_torch.training.jobs import params_for_nerf
     from dreamfusion_torch.utils import results
     from dreamfusion_torch.utils.backend import LocalBackend
@@ -4043,8 +4015,6 @@ def _own_kernels():
     """{name of a __global__ function: its source} over the port's CUDA
     sources (dreamfusion_torch/csrc)."""
     import re
-
-    from dreamfusion_torch.ops import cuda as kcuda
 
     found = {}
     for src in sorted(set(kcuda.SOURCES.values())):

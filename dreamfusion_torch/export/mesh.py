@@ -33,30 +33,6 @@ import torch
 from dreamfusion_torch.device import resolve_device
 from dreamfusion_torch.ops import cuda
 
-_F32P = ctypes.POINTER(ctypes.c_float)
-_I32P = ctypes.POINTER(ctypes.c_int32)
-_I64P = ctypes.POINTER(ctypes.c_int64)
-_U8P = ctypes.POINTER(ctypes.c_uint8)
-
-
-def _lib() -> ctypes.CDLL:
-    lib = cuda.library("mesh_native")
-    lib.marching_tetrahedra.argtypes = [_F32P, ctypes.c_int, ctypes.c_int,
-                                        ctypes.c_int, ctypes.c_float, _F32P,
-                                        _I64P, _I32P, _I64P]
-    lib.rasterize_uv.argtypes = [_F32P, ctypes.c_int64, ctypes.c_int,
-                                 ctypes.c_int, _I32P, _F32P]
-    lib.nearest_inpaint.argtypes = [_U8P, _F32P, ctypes.c_int, ctypes.c_int,
-                                    ctypes.c_int, ctypes.c_int]
-    for fn in (lib.marching_tetrahedra, lib.rasterize_uv,
-               lib.nearest_inpaint):
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def _ptr(a: np.ndarray, kind):
-    return a.ctypes.data_as(kind)
-
 
 def _check(rc: int, fn: str) -> None:
     if rc != 0:
@@ -75,18 +51,16 @@ def marching_tetrahedra(grid: np.ndarray, iso: float
     if grid.ndim != 3 or min(grid.shape) < 2:
         raise ValueError(f"grid must be 3-D with every side >= 2, got "
                          f"{grid.shape}")
-    lib = _lib()
+    fn = cuda.function("marching_tetrahedra")
     nx, ny, nz = grid.shape
     nv, nt = ctypes.c_int64(), ctypes.c_int64()
-    gp = _ptr(grid, _F32P)
-    _check(lib.marching_tetrahedra(gp, nx, ny, nz, iso, None,
-                                   ctypes.byref(nv), None,
-                                   ctypes.byref(nt)), "marching_tetrahedra")
+    _check(fn(grid.ctypes.data, nx, ny, nz, iso, None, ctypes.byref(nv), None,
+              ctypes.byref(nt)), "marching_tetrahedra")
     verts = np.zeros((nv.value, 3), np.float32)
     tris = np.zeros((nt.value, 3), np.int32)
-    _check(lib.marching_tetrahedra(gp, nx, ny, nz, iso, _ptr(verts, _F32P),
-                                   ctypes.byref(nv), _ptr(tris, _I32P),
-                                   ctypes.byref(nt)), "marching_tetrahedra")
+    _check(fn(grid.ctypes.data, nx, ny, nz, iso, verts.ctypes.data,
+              ctypes.byref(nv), tris.ctypes.data, ctypes.byref(nt)),
+           "marching_tetrahedra")
     return verts, tris
 
 
@@ -127,9 +101,9 @@ def rasterize_uv(uvs: np.ndarray, H: int, W: int
         raise ValueError(f"uvs must be [F, 3, 2], got {uvs.shape}")
     face_id = np.full((H, W), -1, np.int32)
     bary = np.zeros((H, W, 2), np.float32)
-    _check(_lib().rasterize_uv(_ptr(uvs, _F32P), uvs.shape[0], H, W,
-                               _ptr(face_id, _I32P), _ptr(bary, _F32P)),
-           "rasterize_uv")
+    _check(cuda.function("rasterize_uv")(uvs.ctypes.data, uvs.shape[0], H, W,
+                                         face_id.ctypes.data,
+                                         bary.ctypes.data), "rasterize_uv")
     return face_id, bary
 
 
@@ -142,9 +116,9 @@ def nearest_inpaint(mask: np.ndarray, image: np.ndarray, dilate: int = 3
     if img.shape[:2] != (H, W):
         raise ValueError(f"image {img.shape} does not match mask {mask.shape}")
     m8 = np.ascontiguousarray(mask.astype(np.uint8))
-    _check(_lib().nearest_inpaint(_ptr(m8, _U8P), _ptr(img, _F32P), H, W,
-                                  img.shape[-1] if img.ndim == 3 else 1,
-                                  dilate), "nearest_inpaint")
+    _check(cuda.function("nearest_inpaint")(
+        m8.ctypes.data, img.ctypes.data, H, W,
+        img.shape[-1] if img.ndim == 3 else 1, dilate), "nearest_inpaint")
     return img
 
 

@@ -15,8 +15,16 @@ compiler's output; nothing falls back.
 Nothing here runs at import time: the CPU tests import every module of the
 port on a machine without ``nvcc`` or a GPU.
 
-``launch_counts`` holds one integer per kernel. A wrapper adds one where it
-launches its kernel and nowhere else, so a run can show that its main path
+``ENTRIES`` is the one record of the libraries' C interface: every
+``extern "C"`` function of ``csrc/``, its library, its parameters' ctypes
+and the ``launch_counts`` key it advances. A library's entry points are
+typed from it when the library is loaded (``tests/test_torch_kernel_abi.py``
+holds it against the C prototypes), and a wrapper reaches a kernel only
+through ``launch``, or a host function through ``function``.
+
+``launch_counts`` holds one integer per counted kernel. ``launch`` adds one
+per kernel call (a wrapper whose one call makes several C calls counts
+once itself) and nothing else does, so a run can show that its main path
 went through the kernels.
 """
 
@@ -29,7 +37,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -53,22 +61,73 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared", "-Wall"]
 
-launch_counts: Dict[str, int] = {
-    "grid_encoder_bwd": 0,
-    "grid_encoder_bwd_rows": 0,
-    "grid_encoder_fwd": 0,
-    "composite_fwd": 0,
-    "composite_bwd": 0,
-    "composite_compact": 0,
-    "attention_fwd": 0,
-    "attention_bwd": 0,
-    "probe_select_small": 0,
-    "march_cone": 0,
-    "grid_sample_fwd": 0,
-    "grid_sample_bwd": 0,
+# the kinds of C parameter: a pointer, int (32-bit), int64_t / long long
+# and float
+_P, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                        ctypes.c_float)
+
+
+class Entry(NamedTuple):
+    """One C entry point: its library, its parameters' ctypes (a CUDA
+    entry's last is the stream) and the launch_counts key that a call
+    advances (None where no call is counted: the host library's functions
+    and attention's delta pass). Every entry returns int: 0, or a
+    cudaError / nonzero code."""
+    library: str
+    argtypes: Tuple[type, ...]
+    counter: Optional[str]
+
+
+ENTRIES: Dict[str, Entry] = {
+    "grid_encoder_bwd": Entry("grid_encoder_bwd", (_P,) * 5 + (_I32, _I32, _P),
+                              "grid_encoder_bwd"),
+    "grid_encoder_bwd_rows": Entry("grid_encoder_bwd",
+                                   (_P,) * 4 + (_I32, _I32, _P),
+                                   "grid_encoder_bwd_rows"),
+    "grid_encoder_fwd": Entry("grid_encoder_fwd",
+                              (_P, _P, _I32, _P, _P, _F32, _F32, _I32, _I32,
+                               _P), "grid_encoder_fwd"),
+    "composite_fwd": Entry("fused_composite",
+                           (_P,) * 7 + (_I32, _I32, _F32, _P),
+                           "composite_fwd"),
+    "composite_bwd": Entry("fused_composite",
+                           (_P,) * 9 + (_I32, _I32, _F32, _P),
+                           "composite_bwd"),
+    "composite_compact": Entry("fused_composite",
+                               (_P,) * 7 + (_I32, _I64, _F32, _P),
+                               "composite_compact"),
+    "attention_fwd": Entry("flash_attention",
+                           (_P,) * 7 + (_I32,) * 7 + (_F32, _P),
+                           "attention_fwd"),
+    "attention_bwd_delta": Entry("flash_attention",
+                                 (_P,) * 3 + (_I32,) * 4 + (_P,), None),
+    "attention_bwd": Entry("flash_attention",
+                           (_P,) * 11 + (_I32,) * 7 + (_F32, _P),
+                           "attention_bwd"),
+    "probe_select": Entry("probe_select", (_P, _P, _P, _I32, _I64, _P),
+                          "probe_select_small"),
+    "march_cone": Entry("march_cone",
+                        (_P,) * 9 + (_I32,) * 5 + (_F32,) * 5 + (_P,),
+                        "march_cone"),
+    "grid_sample_fwd": Entry("grid_sample",
+                             (_P,) * 3 + (_I32,) * 4 + (_I64, _P),
+                             "grid_sample_fwd"),
+    "grid_sample_bwd": Entry("grid_sample",
+                             (_P,) * 3 + (_I32,) * 4 + (_I64, _P),
+                             "grid_sample_bwd"),
+    "marching_tetrahedra": Entry("mesh_native",
+                                 (_P, _I32, _I32, _I32, _F32, _P, _P, _P, _P),
+                                 None),
+    "rasterize_uv": Entry("mesh_native", (_P, _I64, _I32, _I32, _P, _P), None),
+    "nearest_inpaint": Entry("mesh_native", (_P, _P) + (_I32,) * 4, None),
 }
 
+launch_counts: Dict[str, int] = {
+    e.counter: 0 for e in ENTRIES.values() if e.counter is not None}
+
 _libs: Dict[str, ctypes.CDLL] = {}
+# symbol -> its typed C function, set when its library is loaded
+_fns: Dict[str, ctypes._CFuncPtr] = {}
 build_log: Dict[str, str] = {}
 
 
@@ -143,24 +202,44 @@ def build(names: Optional[List[str]] = None) -> Dict[str, float]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library `name`, built first if needed."""
+    """The loaded library `name`, built first if needed; its entry points
+    are typed from ENTRIES once, when it is loaded."""
     lib = _libs.get(name)
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(BUILD_DIR / f"lib{name}.so"))
+        for symbol, entry in ENTRIES.items():
+            if entry.library == name:
+                fn = _fns[symbol] = getattr(lib, symbol)
+                fn.argtypes, fn.restype = entry.argtypes, ctypes.c_int
         _libs[name] = lib
     return lib
+
+
+def function(symbol: str):
+    """The typed C function `symbol` of ENTRIES, its library loaded (and
+    built) first if needed."""
+    library(ENTRIES[symbol].library)
+    return _fns[symbol]
 
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def check_launch(err: int, kernel: str) -> None:
-    """Raise if the C launcher reported a CUDA error (cudaGetLastError)."""
+def launch(symbol: str, device: torch.device, *args, count: bool = True
+           ) -> None:
+    """Call the CUDA entry point `symbol` with `args` and `device`'s current
+    stream; raise if the C launcher reported a CUDA error
+    (cudaGetLastError). The call advances the entry's launch_counts key,
+    if it has one, unless `count` is False: a wrapper that makes several
+    calls for one kernel call counts once itself."""
+    err = (_fns.get(symbol) or function(symbol))(*args, stream_ptr(device))
     if err != 0:
-        raise RuntimeError(f"CUDA kernel {kernel} failed to launch "
+        raise RuntimeError(f"CUDA kernel {symbol} failed to launch "
                            f"(cudaError {err})")
+    if count and (counter := ENTRIES[symbol].counter) is not None:
+        launch_counts[counter] += 1
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,

@@ -20,8 +20,6 @@ under ``SCRATCH_BYTES``.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from dreamfusion_torch.ops import cuda
@@ -45,22 +43,6 @@ NARROW_HEAD_DIM = 64    # widest head of the fused forward kernel
 # scratch of the materialized schedule (wide forward: S f32 + P bf16;
 # backward: P + dS bf16, each [pairs, N, Np]) is kept under this many bytes
 SCRATCH_BYTES = 256 * 2 ** 20
-
-_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-
-
-def _lib():
-    lib = cuda.library("flash_attention")
-    if not getattr(lib, "_typed", False):
-        lib.attention_fwd.argtypes = [_VP] * 7 + [_I] * 7 + [_F, _VP]
-        lib.attention_fwd.restype = _I
-        lib.attention_bwd_delta.argtypes = [_VP] * 3 + [_I] * 4 + [_VP]
-        lib.attention_bwd_delta.restype = _I
-        lib.attention_bwd.argtypes = [_VP] * 11 + [_I] * 7 + [_F, _VP]
-        lib.attention_bwd.restype = _I
-        lib._typed = True
-    return lib
-
 
 def scratch_cols(N: int) -> int:
     """Row length Np of the [pairs, N, Np] scratch: N rounded up to 8, so
@@ -107,12 +89,10 @@ def attention_fwd_cuda(q, k, v, scale: float):
         S = torch.empty(chunk, N, Np, device=q.device, dtype=torch.float32)
         P = torch.empty(chunk, N, Np, device=q.device, dtype=torch.bfloat16)
         s_ptr, p_ptr = S.data_ptr(), P.data_ptr()
-    lib, stream = _lib(), cuda.stream_ptr(q.device)
     for p0, n in chunks:
-        err = lib.attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                o.data_ptr(), lse.data_ptr(), s_ptr, p_ptr,
-                                B, N, H, D, Np, p0, n, float(scale), stream)
-        cuda.check_launch(err, "attention_fwd")
+        cuda.launch("attention_fwd", q.device, q.data_ptr(), k.data_ptr(),
+                    v.data_ptr(), o.data_ptr(), lse.data_ptr(), s_ptr, p_ptr,
+                    B, N, H, D, Np, p0, n, float(scale), count=False)
     cuda.launch_counts["attention_fwd"] += 1
     return o, lse
 
@@ -131,17 +111,14 @@ def attention_bwd_cuda(q, k, v, o, lse, do, scale: float):
     chunk, chunks = scratch_chunks(B, H, N, 2 + 2, SCRATCH_BYTES)
     P, dS = (torch.empty(chunk, N, Np, device=q.device, dtype=torch.bfloat16)
              for _ in range(2))
-    lib, stream = _lib(), cuda.stream_ptr(q.device)
-    err = lib.attention_bwd_delta(o.data_ptr(), do.data_ptr(), delta.data_ptr(),
-                                  B, N, H, D, stream)
-    cuda.check_launch(err, "attention_bwd")
+    cuda.launch("attention_bwd_delta", q.device, o.data_ptr(), do.data_ptr(),
+                delta.data_ptr(), B, N, H, D)
     for p0, n in chunks:
-        err = lib.attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                                P.data_ptr(), dS.data_ptr(), dq.data_ptr(),
-                                dk.data_ptr(), dv.data_ptr(), B, N, H, D, Np,
-                                p0, n, float(scale), stream)
-        cuda.check_launch(err, "attention_bwd")
+        cuda.launch("attention_bwd", q.device, q.data_ptr(), k.data_ptr(),
+                    v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                    delta.data_ptr(), P.data_ptr(), dS.data_ptr(),
+                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, N, H, D,
+                    Np, p0, n, float(scale), count=False)
     cuda.launch_counts["attention_bwd"] += 1
     return dq, dk, dv
 

@@ -14,7 +14,6 @@ The library's third kernel, C, is the staged eval's compact compositor:
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
@@ -72,25 +71,6 @@ def composite_bwd_plain(sig, rgb, dt, ts, g_ws, g_depth, g_rgb,
 
 # -- kernel wrappers -----------------------------------------------------------
 
-_VP, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                    ctypes.c_float)
-
-
-def _lib():
-    """The kernels' library (B-fwd, B-bwd and C), built and typed at first
-    use."""
-    lib = cuda.library("fused_composite")
-    if not getattr(lib, "_typed", False):
-        lib.composite_fwd.argtypes = [_VP] * 7 + [_I, _I, _F, _VP]
-        lib.composite_fwd.restype = _I
-        lib.composite_bwd.argtypes = [_VP] * 9 + [_I, _I, _F, _VP]
-        lib.composite_bwd.restype = _I
-        lib.composite_compact.argtypes = [_VP] * 7 + [_I, _LL, _F, _VP]
-        lib.composite_compact.restype = _I
-        lib._typed = True
-    return lib
-
-
 def _check_inputs(sig, rgb, dt, ts):
     N, K = sig.shape
     cuda.require(sig, "sigmas", torch.float32, (N, K))
@@ -106,12 +86,9 @@ def composite_fwd_cuda(sig, rgb, dt, ts, T_thresh: float):
     ws = torch.empty(N, device=sig.device, dtype=torch.float32)
     depth = torch.empty_like(ws)
     out_rgb = torch.empty(N, 3, device=sig.device, dtype=torch.float32)
-    err = _lib().composite_fwd(
-        sig.data_ptr(), rgb.data_ptr(), dt.data_ptr(), ts.data_ptr(),
-        ws.data_ptr(), depth.data_ptr(), out_rgb.data_ptr(), N, K,
-        float(T_thresh), cuda.stream_ptr(sig.device))
-    cuda.check_launch(err, "composite_fwd")
-    cuda.launch_counts["composite_fwd"] += 1
+    cuda.launch("composite_fwd", sig.device, sig.data_ptr(), rgb.data_ptr(),
+                dt.data_ptr(), ts.data_ptr(), ws.data_ptr(), depth.data_ptr(),
+                out_rgb.data_ptr(), N, K, float(T_thresh))
     return ws, depth, out_rgb
 
 
@@ -124,13 +101,10 @@ def composite_bwd_cuda(sig, rgb, dt, ts, g_ws, g_depth, g_rgb,
     cuda.require(g_rgb, "g_rgb", torch.float32, (N, 3), sig.device)
     d_sig = torch.empty_like(sig)
     d_rgb = torch.empty_like(rgb)
-    err = _lib().composite_bwd(
-        sig.data_ptr(), rgb.data_ptr(), dt.data_ptr(), ts.data_ptr(),
-        g_ws.data_ptr(), g_depth.data_ptr(), g_rgb.data_ptr(),
-        d_sig.data_ptr(), d_rgb.data_ptr(), N, K, float(T_thresh),
-        cuda.stream_ptr(sig.device))
-    cuda.check_launch(err, "composite_bwd")
-    cuda.launch_counts["composite_bwd"] += 1
+    cuda.launch("composite_bwd", sig.device, sig.data_ptr(), rgb.data_ptr(),
+                dt.data_ptr(), ts.data_ptr(), g_ws.data_ptr(),
+                g_depth.data_ptr(), g_rgb.data_ptr(), d_sig.data_ptr(),
+                d_rgb.data_ptr(), N, K, float(T_thresh))
     return d_sig, d_rgb
 
 
@@ -152,12 +126,10 @@ def composite_compact_cuda(sigma_c, color_c, t_c, dt_c, cmap, N: int,
     cuda.require(cmap.offs, "offs", torch.int64, (N,), dev)
     cuda.require(cmap.cnt, "cnt", torch.int64, (N,), dev)
     acc = torch.empty(N, 6, device=dev, dtype=torch.float32)
-    err = _lib().composite_compact(
-        sigma_c.data_ptr(), color_c.data_ptr(), dt_c.data_ptr(),
-        t_c.data_ptr(), cmap.offs.data_ptr(), cmap.cnt.data_ptr(),
-        acc.data_ptr(), N, M, float(T_thresh), cuda.stream_ptr(dev))
-    cuda.check_launch(err, "composite_compact")
-    cuda.launch_counts["composite_compact"] += 1
+    cuda.launch("composite_compact", dev, sigma_c.data_ptr(),
+                color_c.data_ptr(), dt_c.data_ptr(), t_c.data_ptr(),
+                cmap.offs.data_ptr(), cmap.cnt.data_ptr(), acc.data_ptr(), N,
+                M, float(T_thresh))
     return acc[:, 2:5], acc[:, 0], acc[:, 1], acc[:, 5]
 
 

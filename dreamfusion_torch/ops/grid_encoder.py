@@ -15,27 +15,30 @@ JAX package exactly:
 - per-level table sizes capped at 2**log2_hashmap_size, rounded up to a
   multiple of 8, flat [T, C] table; init U(-1e-4, 1e-4).
 
-The forward of a CUDA tensor is kernel H (csrc/grid_encoder_fwd.cu), every
-level in one launch from the positions and the level table of kernel E;
-on the CPU it is the plain gather plus trilinear blend that kernel H
-follows (the JAX forward is XLA ``take``, not a Pallas kernel). The
-backward's residuals are built only where autograd will read them: grad
-enabled and a table that requires grad. Under no_grad (the staged eval,
-the occupancy refresh, the mesh export) kernel H alone runs. Which backward
-an encoder takes follows the JAX package (grid_encoder.py:461-464,
-513-524):
+The forward is ``GridEncoderSpec.encode``: kernel H
+(csrc/grid_encoder_fwd.cu) on a CUDA tensor, every level in one launch from
+the positions and the level table of kernel E; on the CPU the plain gather
+plus trilinear blend that kernel H follows (the JAX forward is XLA
+``take``, not a Pallas kernel). The backward's residuals are built only
+where autograd will read them: grad enabled and a table that requires
+grad. Under no_grad (the staged eval, the occupancy refresh, the mesh
+export) kernel H alone runs. With grad, the one autograd Function
+``_EncodeLevels`` runs that forward and saves the residuals of the
+backward the spec takes, which follows the JAX package
+(grid_encoder.py:461-464, 513-524):
 - every level affine (the tiled grid, or a hash spec so small that no level
   hashes): corner c of a sample with corner-0 row ``base`` lives at
-  ``(base + corner_off_c) % size``. ``_EncodeLevels.backward`` launches
-  kernel A (csrc/grid_encoder_bwd.cu) on CUDA and runs
-  ``grid_encoder_bwd_plain`` on the CPU;
+  ``(base + corner_off_c) % size``. The residuals are ``residuals()``'s
+  base_all and w_all; the backward launches kernel A
+  (csrc/grid_encoder_bwd.cu) on CUDA and runs ``grid_encoder_bwd_plain`` on
+  the CPU;
 - any level hashed: every corner of every level goes through the index
-  function (a hashed corner is not ``base + offset``). The forward keeps
-  only the unit positions ``x01`` [B, D] for the backward;
-  ``_EncodeLevelsRows.backward`` launches kernel E (the second entry of
-  csrc/grid_encoder_bwd.cu), which forms the corners, weights and rows
-  from ``x01`` itself, on CUDA, and on the CPU rebuilds the rows
-  ``[L, 8, B]`` (``corner_rows``) for ``grid_encoder_bwd_rows_plain``;
+  function (a hashed corner is not ``base + offset``). The only residual
+  is the unit positions ``x01`` [B, D]; the backward launches kernel E (the
+  second entry of csrc/grid_encoder_bwd.cu), which forms the corners,
+  weights and rows from ``x01`` itself, on CUDA, and on the CPU rebuilds
+  the rows ``[L, 8, B]`` (``corner_rows``) for
+  ``grid_encoder_bwd_rows_plain``;
 - ``differentiable_inputs=True``: plain autograd through the gather, which
   also gives d(out)/d(position) with d(frac)/dx = scale (the reference's
   calc_grad_inputs); no custom backward.
@@ -46,7 +49,6 @@ default calc_grad_inputs=False).
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 from dataclasses import dataclass
@@ -319,15 +321,17 @@ class GridEncoderSpec:
         elif not (torch.is_grad_enabled() and embeddings.requires_grad):
             return self.encode(embeddings, x, bound).reshape(
                 *prefix, self.output_dim)
-        elif any(self.hashed_levels):
-            with torch.no_grad():
-                xT, oob = self._unit_positions(x, bound)
-            out = _EncodeLevelsRows.apply(embeddings, x, bound, xT.t(), self)
         else:
+            consts = _level_consts(self, embeddings.device)
             with torch.no_grad():
-                base_all, w_all, oob = self.residuals(x, bound)
-            out = _EncodeLevels.apply(embeddings, x, bound, base_all, w_all,
-                                      self)
+                if consts.hashed:
+                    xT, oob = self._unit_positions(x, bound)
+                    saved = (xT.t(),)
+                else:
+                    base_all, w_all, oob = self.residuals(x, bound)
+                    saved = (base_all, w_all)
+            out = _EncodeLevels.apply(embeddings, x, bound, self, consts,
+                                      *saved)
         # zero outside the box; with a custom backward this also zeroes
         # those samples' cotangent, which the backward kernels then skip
         out = torch.where(oob[:, None, None], 0.0, out)
@@ -335,15 +339,21 @@ class GridEncoderSpec:
 
 
 class _LevelConsts:
-    """Per-device constants of one spec whose levels are all affine: kernel
-    A's table and the corner offsets as tensors."""
+    """Per-device constants of one spec: kernels E and H's [L, 8] table
+    (``rows_level_table``) for every spec; for a spec whose levels are all
+    affine also kernel A's [L, 10] table (``level_table``) and its corner
+    offsets as tensors, which are None where a level hashes."""
 
     def __init__(self, spec: GridEncoderSpec, device: torch.device):
-        self.table = spec.level_table(device)
-        self.sizes = self.table[:, 0].long()
-        self.offsets = self.table[:, 1].long()
-        self.corner_offs = self.table[:, 2:].long()         # [L, 8]
+        self.rows_table = spec.rows_level_table(device)
         self.total = spec.table_size
+        self.hashed = any(spec.hashed_levels)
+        self.table = self.sizes = self.offsets = self.corner_offs = None
+        if not self.hashed:
+            self.table = spec.level_table(device)
+            self.sizes = self.table[:, 0].long()
+            self.offsets = self.table[:, 1].long()
+            self.corner_offs = self.table[:, 2:].long()     # [L, 8]
 
 
 _CONSTS: Dict[Tuple[GridEncoderSpec, str], _LevelConsts] = {}
@@ -363,15 +373,6 @@ def _corner_rows(consts: _LevelConsts, base_all: torch.Tensor, lvl: int):
         % consts.sizes[lvl] + consts.offsets[lvl]
 
 
-def encode_fwd(emb, base_all, w_all, consts: _LevelConsts) -> torch.Tensor:
-    """Plain gather + trilinear blend -> [B, L, C] (f32)."""
-    outs = []
-    for lvl in range(base_all.shape[0]):
-        vals = emb[_corner_rows(consts, base_all, lvl)].float()   # [8, B, C]
-        outs.append((w_all[lvl][..., None] * vals).sum(0))
-    return torch.stack(outs, dim=1)
-
-
 def grid_encoder_bwd_plain(base_all, w_all, cot, consts: _LevelConsts
                            ) -> torch.Tensor:
     """d_emb [T, C]: index_add_ of w_c * cot for the 8 corners per level."""
@@ -385,20 +386,6 @@ def grid_encoder_bwd_plain(base_all, w_all, cot, consts: _LevelConsts
     return d
 
 
-_VP, _I = ctypes.c_void_p, ctypes.c_int
-
-
-def _lib():
-    lib = cuda.library("grid_encoder_bwd")
-    if not getattr(lib, "_typed", False):
-        lib.grid_encoder_bwd.argtypes = [_VP] * 5 + [_I, _I, _VP]
-        lib.grid_encoder_bwd.restype = _I
-        lib.grid_encoder_bwd_rows.argtypes = [_VP] * 4 + [_I, _I, _VP]
-        lib.grid_encoder_bwd_rows.restype = _I
-        lib._typed = True
-    return lib
-
-
 def grid_encoder_bwd_cuda(base_all, w_all, cot, consts: _LevelConsts
                           ) -> torch.Tensor:
     """Kernel A: same contract as grid_encoder_bwd_plain (C = 2, 8 corners)."""
@@ -409,11 +396,8 @@ def grid_encoder_bwd_cuda(base_all, w_all, cot, consts: _LevelConsts
     cuda.require(cot, "cot", torch.float32, (B, L, 2), dev)
     cuda.require(consts.table, "level table", torch.int32, (L, 10), dev)
     d = torch.zeros(consts.total, 2, device=dev, dtype=torch.float32)
-    err = _lib().grid_encoder_bwd(base_all.data_ptr(), w_all.data_ptr(),
-                                  cot.data_ptr(), consts.table.data_ptr(),
-                                  d.data_ptr(), L, B, cuda.stream_ptr(dev))
-    cuda.check_launch(err, "grid_encoder_bwd")
-    cuda.launch_counts["grid_encoder_bwd"] += 1
+    cuda.launch("grid_encoder_bwd", dev, base_all.data_ptr(), w_all.data_ptr(),
+                cot.data_ptr(), consts.table.data_ptr(), d.data_ptr(), L, B)
     return d
 
 
@@ -421,28 +405,6 @@ def grid_encoder_bwd(base_all, w_all, cot, consts: _LevelConsts):
     if cot.is_cuda:
         return grid_encoder_bwd_cuda(base_all, w_all, cot, consts)
     return grid_encoder_bwd_plain(base_all, w_all, cot, consts)
-
-
-class _EncodeLevels(torch.autograd.Function):
-    """emb [T, C], positions x [B, D], their residuals base_all [L, B] and
-    w_all [L, 8, B] -> [B, L, C]; the residuals are kernel A's inputs."""
-
-    @staticmethod
-    def forward(ctx, emb, x, bound, base_all, w_all, spec):
-        consts = _level_consts(spec, emb.device)
-        ctx.save_for_backward(base_all, w_all)
-        ctx.consts = consts
-        ctx.emb_dtype = emb.dtype
-        if emb.is_cuda:
-            return grid_encoder_fwd_cuda(spec, emb, x, bound)
-        return encode_fwd(emb, base_all, w_all, consts)
-
-    @staticmethod
-    def backward(ctx, cot):
-        base_all, w_all = ctx.saved_tensors
-        d = grid_encoder_bwd(base_all, w_all, cot.float().contiguous(),
-                             ctx.consts)
-        return d.to(ctx.emb_dtype), None, None, None, None, None
 
 
 # -- encoders with a hashed level: the residual is the unit positions -----------
@@ -461,18 +423,6 @@ def grid_encoder_bwd_rows_plain(rows, w_all, cot, total: int) -> torch.Tensor:
     return d
 
 
-_ROWS_TABLES: Dict[Tuple[GridEncoderSpec, str], torch.Tensor] = {}
-
-
-def _rows_table(spec: GridEncoderSpec, device: torch.device) -> torch.Tensor:
-    """spec.rows_level_table on `device`, built once per (spec, device): the
-    constant table of kernels E and H."""
-    key = (spec, str(device))
-    if key not in _ROWS_TABLES:
-        _ROWS_TABLES[key] = spec.rows_level_table(device)
-    return _ROWS_TABLES[key]
-
-
 def grid_encoder_bwd_rows_cuda(spec: GridEncoderSpec, x01: torch.Tensor,
                                cot: torch.Tensor) -> torch.Tensor:
     """Kernel E: the table gradient [T, 2] of an encoder with a hashed level
@@ -486,12 +436,9 @@ def grid_encoder_bwd_rows_cuda(spec: GridEncoderSpec, x01: torch.Tensor,
     if spec.input_dim != 3 or spec.level_dim != 2:
         raise ValueError("kernel E takes 3-D positions and 2 features a level")
     d = torch.zeros(spec.table_size, 2, device=dev, dtype=torch.float32)
-    err = _lib().grid_encoder_bwd_rows(x01.data_ptr(), cot.data_ptr(),
-                                       _rows_table(spec, dev).data_ptr(),
-                                       d.data_ptr(), L, B,
-                                       cuda.stream_ptr(dev))
-    cuda.check_launch(err, "grid_encoder_bwd_rows")
-    cuda.launch_counts["grid_encoder_bwd_rows"] += 1
+    cuda.launch("grid_encoder_bwd_rows", dev, x01.data_ptr(), cot.data_ptr(),
+                _level_consts(spec, dev).rows_table.data_ptr(), d.data_ptr(),
+                L, B)
     return d
 
 
@@ -502,38 +449,33 @@ def grid_encoder_bwd_rows(spec: GridEncoderSpec, x01, cot):
                                        spec.table_size)
 
 
-class _EncodeLevelsRows(torch.autograd.Function):
-    """emb [T, C], positions x [B, D] and their unit positions x01 [B, D]
-    -> [B, L, C]; x01 is the only residual (the rows and weights of the
-    forward's gather are never kept)."""
+class _EncodeLevels(torch.autograd.Function):
+    """emb [T, C], positions x [B, D] and the backward's residuals ->
+    [B, L, C] by ``spec.encode``. The residuals are kernel A's inputs
+    base_all [L, B] and w_all [L, 8, B] when every level is affine, else
+    the unit positions x01 [B, D] alone, from which kernel E forms the
+    corners (the rows and weights of the forward's gather are never
+    kept)."""
 
     @staticmethod
-    def forward(ctx, emb, x, bound, x01, spec):
-        ctx.save_for_backward(x01)
-        ctx.spec, ctx.emb_dtype = spec, emb.dtype
-        if emb.is_cuda:
-            return grid_encoder_fwd_cuda(spec, emb, x, bound)
-        return spec._gather_levels(emb, x01.t())
+    def forward(ctx, emb, x, bound, spec, consts, *residuals):
+        ctx.save_for_backward(*residuals)
+        ctx.spec, ctx.consts, ctx.emb_dtype = spec, consts, emb.dtype
+        return spec.encode(emb, x, bound)
 
     @staticmethod
     def backward(ctx, cot):
-        (x01,) = ctx.saved_tensors
-        d = grid_encoder_bwd_rows(ctx.spec, x01, cot.float().contiguous())
-        return d.to(ctx.emb_dtype), None, None, None, None
+        residuals = ctx.saved_tensors
+        cot = cot.float().contiguous()
+        if ctx.consts.hashed:
+            d = grid_encoder_bwd_rows(ctx.spec, *residuals, cot)
+        else:
+            d = grid_encoder_bwd(*residuals, cot, ctx.consts)
+        return (d.to(ctx.emb_dtype), None, None, None, None,
+                *(None for _ in residuals))
 
 
 # -- kernel H: the forward of every spec, all levels in one launch ------------
-
-def _fwd_lib():
-    lib = cuda.library("grid_encoder_fwd")
-    if not getattr(lib, "_typed", False):
-        lib.grid_encoder_fwd.argtypes = [_VP, _VP, _I, _VP, _VP,
-                                         ctypes.c_float, ctypes.c_float,
-                                         _I, _I, _VP]
-        lib.grid_encoder_fwd.restype = _I
-        lib._typed = True
-    return lib
-
 
 def grid_encoder_fwd_cuda(spec: GridEncoderSpec, emb: torch.Tensor,
                           x: torch.Tensor, bound: float) -> torch.Tensor:
@@ -550,10 +492,8 @@ def grid_encoder_fwd_cuda(spec: GridEncoderSpec, emb: torch.Tensor,
     cuda.require(x, "x", torch.float32, (B, 3))
     cuda.require(emb, "table", emb.dtype, (spec.table_size, 2), dev)
     out = torch.empty(B, L, 2, device=dev, dtype=torch.float32)
-    err = _fwd_lib().grid_encoder_fwd(
-        x.data_ptr(), emb.data_ptr(), int(emb.dtype == torch.bfloat16),
-        _rows_table(spec, dev).data_ptr(), out.data_ptr(), bound,
-        2.0 * bound, L, B, cuda.stream_ptr(dev))
-    cuda.check_launch(err, "grid_encoder_fwd")
-    cuda.launch_counts["grid_encoder_fwd"] += 1
+    cuda.launch("grid_encoder_fwd", dev, x.data_ptr(), emb.data_ptr(),
+                int(emb.dtype == torch.bfloat16),
+                _level_consts(spec, dev).rows_table.data_ptr(),
+                out.data_ptr(), bound, 2.0 * bound, L, B)
     return out

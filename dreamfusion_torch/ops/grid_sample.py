@@ -26,7 +26,6 @@ before sampling).
 
 from __future__ import annotations
 
-import ctypes
 from typing import Sequence, Tuple
 
 import torch
@@ -83,19 +82,6 @@ def grid_sample_3d_plain(grid: torch.Tensor, xyz01: torch.Tensor,
     return out.reshape(*prefix, C)
 
 
-_VP, _I = ctypes.c_void_p, ctypes.c_int
-
-
-def _lib():
-    lib = cuda.library("grid_sample")
-    if not getattr(lib, "_typed", False):
-        for fn in (lib.grid_sample_fwd, lib.grid_sample_bwd):
-            fn.argtypes = [_VP] * 3 + [_I] * 4 + [ctypes.c_int64, _VP]
-            fn.restype = _I
-        lib._typed = True
-    return lib
-
-
 def _grid_dims(shape: Sequence[int]) -> Tuple[int, int, int, int]:
     if len(shape) != 4:
         raise ValueError(f"grid must be [C, X, Y, Z], got {tuple(shape)}")
@@ -115,11 +101,8 @@ def grid_sample_fwd_cuda(grid: torch.Tensor, x01: torch.Tensor
     cuda.require(grid, "grid", torch.float32)
     cuda.require(x01, "x01", torch.float32, (B, 3), dev)
     out = torch.empty(B, C, device=dev, dtype=torch.float32)
-    err = _lib().grid_sample_fwd(grid.data_ptr(), x01.data_ptr(),
-                                 out.data_ptr(), C, X, Y, Z, B,
-                                 cuda.stream_ptr(dev))
-    cuda.check_launch(err, "grid_sample_fwd")
-    cuda.launch_counts["grid_sample_fwd"] += 1
+    cuda.launch("grid_sample_fwd", dev, grid.data_ptr(), x01.data_ptr(),
+                out.data_ptr(), C, X, Y, Z, B)
     return out
 
 
@@ -133,10 +116,8 @@ def grid_sample_bwd_cuda(x01: torch.Tensor, cot: torch.Tensor,
     cuda.require(x01, "x01", torch.float32, (B, 3))
     cuda.require(cot, "cot", torch.float32, (B, C), dev)
     d = torch.zeros(C, X, Y, Z, device=dev, dtype=torch.float32)
-    err = _lib().grid_sample_bwd(x01.data_ptr(), cot.data_ptr(), d.data_ptr(),
-                                 C, X, Y, Z, B, cuda.stream_ptr(dev))
-    cuda.check_launch(err, "grid_sample_bwd")
-    cuda.launch_counts["grid_sample_bwd"] += 1
+    cuda.launch("grid_sample_bwd", dev, x01.data_ptr(), cot.data_ptr(),
+                d.data_ptr(), C, X, Y, Z, B)
     return d
 
 

@@ -28,7 +28,6 @@ injected, as everywhere in the port.
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
@@ -419,18 +418,6 @@ def march_rays_cone_plain(occ, rays_o, rays_d, t0, fars, *, bound: float,
                     torch.stack(emits, 1), K)[0]
 
 
-_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-
-
-def _cone_lib():
-    lib = cuda.library("march_cone")
-    if not getattr(lib, "_typed", False):
-        lib.march_cone.argtypes = ([_VP] * 9 + [_I] * 5 + [_F] * 5 + [_VP])
-        lib.march_cone.restype = _I
-        lib._typed = True
-    return lib
-
-
 @torch.no_grad()
 def march_rays_cone_cuda(occ, rays_o, rays_d, t0, fars, *, bound: float,
                          max_steps: int, K: int,
@@ -449,13 +436,10 @@ def march_rays_cone_cuda(occ, rays_o, rays_d, t0, fars, *, bound: float,
     dts = torch.empty(N, K, dtype=torch.float32, device=dev)
     valid = torch.empty(N, K, dtype=torch.bool, device=dev)
     counts = torch.empty(N, dtype=torch.int64, device=dev)
-    err = _cone_lib().march_cone(
-        rays_o.data_ptr(), rays_d.data_ptr(), t0.data_ptr(), fars.data_ptr(),
-        occ.data_ptr(), ts.data_ptr(), dts.data_ptr(), valid.data_ptr(),
-        counts.data_ptr(), N, K, max_steps, C, H, float(bound), g, dt_min,
-        dt_max, cell, cuda.stream_ptr(dev))
-    cuda.check_launch(err, "march_cone")
-    cuda.launch_counts["march_cone"] += 1
+    cuda.launch("march_cone", dev, rays_o.data_ptr(), rays_d.data_ptr(),
+                t0.data_ptr(), fars.data_ptr(), occ.data_ptr(), ts.data_ptr(),
+                dts.data_ptr(), valid.data_ptr(), counts.data_ptr(), N, K,
+                max_steps, C, H, float(bound), g, dt_min, dt_max, cell)
     return MarchOut(ts=ts, dts=dts, valid=valid, counts=counts)
 
 

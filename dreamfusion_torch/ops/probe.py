@@ -15,8 +15,6 @@ f32 output was a layout convenience of its one-hot matmul.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from dreamfusion_torch.ops import cuda
@@ -36,18 +34,6 @@ def probe_select_small_plain(table_u8: torch.Tensor,
     return table_u8[flat_idx.long()]
 
 
-_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-
-
-def _lib():
-    lib = cuda.library("probe_select")
-    if not getattr(lib, "_typed", False):
-        lib.probe_select.argtypes = [_VP, _VP, _VP, _I, _LL, _VP]
-        lib.probe_select.restype = _I
-        lib._typed = True
-    return lib
-
-
 def probe_select_small_cuda(table_u8: torch.Tensor,
                             flat_idx: torch.Tensor) -> torch.Tensor:
     """Kernel D: same contract as probe_select_small_plain, int32 indices."""
@@ -62,11 +48,8 @@ def probe_select_small_cuda(table_u8: torch.Tensor,
     if flat_idx.data_ptr() % 16:          # the kernel reads 4 ids at a time
         flat_idx = flat_idx.clone()
     out = torch.empty(J, dtype=torch.uint8, device=table_u8.device)
-    err = _lib().probe_select(table_u8.data_ptr(), flat_idx.data_ptr(),
-                              out.data_ptr(), T, J,
-                              cuda.stream_ptr(table_u8.device))
-    cuda.check_launch(err, "probe_select_small")
-    cuda.launch_counts["probe_select_small"] += 1
+    cuda.launch("probe_select", table_u8.device, table_u8.data_ptr(),
+                flat_idx.data_ptr(), out.data_ptr(), T, J)
     return out
 
 

@@ -248,7 +248,7 @@ def test_hash_table_grad_through_saved_x01_matches_k1c(name, B):
     cot = rng.normal(size=(B, ts.output_dim)).astype(np.float32)
     et = _t(emb).requires_grad_(True)
     out = ts(et, _t(x))
-    node = _find_node(out.grad_fn, "_EncodeLevelsRowsBackward")
+    node = _find_node(out.grad_fn, "_EncodeLevelsBackward")
     saved = node.saved_tensors
     assert len(saved) == 1 and saved[0].shape == (B, 3)
     assert saved[0].dtype == torch.float32
@@ -265,10 +265,9 @@ def test_hash_table_grad_through_saved_x01_matches_k1c(name, B):
 
 def test_hash_spec_without_hashed_level_takes_kernel_a_path(monkeypatch):
     """(d) A hash spec small enough that no level hashes is all affine and
-    goes through _EncodeLevels (kernel A on the card), like the JAX
-    package's oct path; a spec with a hashed level goes through
-    _EncodeLevelsRows (kernel E). The tiled spec's residuals are the JAX
-    package's."""
+    _EncodeLevels's backward takes kernel A's path (on the card), like the
+    JAX package's oct path; for a spec with a hashed level it takes kernel
+    E's. The tiled spec's residuals are the JAX package's."""
     kw = dict(num_levels=3, base_resolution=4, log2_hashmap_size=19)
     js, ts = JSpec(scatter_impl="xla", **kw), TSpec(**kw)
     assert ts.gridtype == "hash" and not any(ts.hashed_levels)
@@ -343,6 +342,7 @@ TILED_O = dict(num_levels=16, log2_hashmap_size=16, desired_resolution=2048,
 AFFINE_HASH = dict(num_levels=3, base_resolution=4, log2_hashmap_size=19)
 ENCODE_CASES = {"tiled -O, f32 table": (TILED_O, torch.float32),
                 "tiled -O, bf16 table": (TILED_O, torch.bfloat16),
+                "hash without a hashed level": (AFFINE_HASH, torch.float32),
                 "hash, small": (SMALL, torch.float32),
                 "hash, default": (DEFAULT, torch.float32)}
 
@@ -356,9 +356,13 @@ def _table(ts, seed):
 def test_no_grad_encode_builds_no_residuals(case, monkeypatch):
     """Under no_grad, and with grad on but a table that needs none, the
     encoder takes the residual-free forward (kernel H's plain version):
-    residuals, residuals_rows and both autograd functions raise if called.
+    residuals, residuals_rows and the autograd function raise if called.
     Its output is bitwise the grad path's, on cell faces, box faces and
-    outside the box, whose rows read exactly 0."""
+    outside the box, whose rows read exactly 0. Both paths run the one
+    forward, GridEncoderSpec.encode, so this holds that the grad path adds
+    nothing to it; the forward's rows are held against kernel A's level
+    table by test_torch_scatter.py::test_kernel_a_level_table and against
+    the JAX package by (d) and test_hash_forward_and_table_grad_match_jax_xla."""
     kw, dtype = ENCODE_CASES[case]
     ts = TSpec(**kw)
     et = _table(ts, 11).requires_grad_(True)
@@ -372,8 +376,7 @@ def test_no_grad_encode_builds_no_residuals(case, monkeypatch):
 
     for name in ("residuals", "residuals_rows"):
         monkeypatch.setattr(TSpec, name, boom)
-    for fn in (tge._EncodeLevels, tge._EncodeLevelsRows):
-        monkeypatch.setattr(fn, "apply", boom)
+    monkeypatch.setattr(tge._EncodeLevels, "apply", boom)
     with torch.no_grad():
         got = ts(et.to(dtype), x)
     frozen = ts(et.detach().to(dtype), x)
@@ -411,30 +414,6 @@ def test_table_grad_is_the_plain_backward_of_the_residuals(name):
     ep = _table(ts, 13).requires_grad_(True)
     (TSpec(**kw, differentiable_inputs=True)(ep, x) * cot).sum().backward()
     assert (ep.grad - d).abs().max() <= 1e-5 * d.abs().max()
-
-
-@pytest.mark.parametrize("kw,dtype", [
-    (TILED_O, torch.float32), (TILED_O, torch.bfloat16),
-    (AFFINE_HASH, torch.float32)],
-    ids=["tiled -O, f32 table", "tiled -O, bf16 table",
-         "hash without a hashed level"])
-def test_cpu_encode_is_encode_fwd_of_the_residuals(kw, dtype):
-    """On the CPU the forward without residuals (the plain gather level by
-    level, kernel H's plain version) is bitwise the composition of
-    residuals() and encode_fwd with the out-of-box rows zeroed, for specs
-    whose levels are all affine."""
-    ts = TSpec(**kw)
-    assert not any(ts.hashed_levels)
-    emb = _table(ts, 16).to(dtype)
-    x = _t(_face_points(ts, 1024, 17))
-    base, w, oob = ts.residuals(x)
-    ref = tge.encode_fwd(emb, base, w, tge._level_consts(ts, x.device))
-    ref = torch.where(oob[:, None, None], 0.0, ref)
-    got = ts.encode(emb, x)
-    assert got.shape == (1024, ts.num_levels, 2) and got.dtype == torch.float32
-    assert torch.equal(got, ref) and oob.any()
-    with torch.no_grad():
-        assert torch.equal(ts(emb, x), ref.reshape(1024, -1))
 
 
 @pytest.mark.parametrize("encoding,out_dim", [
