@@ -271,6 +271,9 @@ REPLACES = {
     "grid_sample_bwd": "dreamfusion_tpu/ops/grid_sample.py",
     # no Pallas counterpart: the JAX package's XLA take and blend
     "grid_encoder_fwd": "dreamfusion_tpu/ops/grid_encoder.py",
+    # no Pallas counterpart: the JAX package's windowed march (XLA ops,
+    # its sort-based compaction), one call per ray group
+    "march_window": "dreamfusion_tpu/ops/marching.py:519",
 }
 # kernel A at a level of 4,096 rows stands in for K1b, matmul_scatter_add_oct
 K1B_REPLACES = "dreamfusion_tpu/ops/pallas_scatter.py:645"
@@ -283,11 +286,12 @@ TRAIN_KERNELS = ("grid_encoder_fwd", "grid_encoder_bwd", "composite_fwd",
 # (the eval's dense groups, those whose live count fills the K bucket,
 # composite through kernel B-fwd)
 EVAL_KERNELS = ("grid_encoder_fwd", "composite_compact", "probe_select_small",
-                "composite_fwd")
+                "composite_fwd", "march_window")
 # the editing path trains a field without a grid-encoder table
 EDIT_TRAIN_KERNELS = ("composite_fwd", "composite_bwd", "attention_fwd",
                       "attention_bwd")
-EDIT_EVAL_KERNELS = ("composite_compact", "probe_select_small")
+EDIT_EVAL_KERNELS = ("composite_compact", "probe_select_small",
+                     "march_window")
 ENCODER_KERNELS = ("grid_encoder_fwd", "grid_encoder_bwd",
                    "grid_encoder_bwd_rows")
 # DVGO's voxel grids (pretraining, the zoo, the editing field)
@@ -2518,6 +2522,165 @@ def check_march_cone(label, occ, o, d, t0, fars, bound_, max_steps, K,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
+def frame_march_args(cfg, model, gs, view: int = 3):
+    """The arguments the staged eval hands marching.march_window_groups
+    for orbit frame `view` of cfg.test_size at cfg.H x cfg.W: ((the grid
+    state, the frame's padded rays, classify's perm, t_lo and span maxima,
+    the number of flagged groups), the keywords). It records them by
+    swapping the trainer module's name march_window_groups for the
+    frame."""
+    from dreamfusion_torch import cameras
+    from dreamfusion_torch.training import trainer as tr_mod
+
+    seen = {}
+    march = tr_mod.march_window_groups
+
+    def spy(*args, **kw):
+        seen["args"], seen["kw"] = args, kw
+        return march(*args, **kw)
+
+    tr_mod.march_window_groups = spy
+    try:
+        b = cameras.sample_test_batch(view, cfg.test_size, cfg, H=cfg.H,
+                                      W=cfg.W, device=gs.occ.device)
+        tr_mod.make_staged_grid_eval(cfg, model, cfg.H, cfg.W)(
+            b["rays_o"][0], b["rays_d"][0], gs)
+    finally:
+        tr_mod.march_window_groups = march
+    return seen["args"], seen["kw"]
+
+
+def orbit_scene(config: str, tmp: str):
+    """An orbit cell's field and grid state at its configuration's settings
+    (benchmark/configs/<config>.json's "trainer"): grid_sd15's seeded -O
+    grid field, or dvgo_sd15's editing field on write_dvgo's seeded 160^3
+    scene (written under tmp); one full refresh from a seeded jitter.
+    Returns (cfg, model, grid state)."""
+    from dreamfusion_torch.config import Config
+    from dreamfusion_torch.models.networks import build_model
+    from dreamfusion_torch.ops import marching
+
+    dev = torch.device("cuda")
+    with open(os.path.join(ROOT, "benchmark", "configs",
+                           f"{config}.json")) as f:
+        fields = {k: tuple(v) if isinstance(v, list) else v
+                  for k, v in json.load(f)["trainer"].items()}
+    if fields["backbone"] == "dvgo":
+        fields["pretrained_dvgo"] = os.path.join(tmp, "scene.dvgo")
+        write_dvgo(fields["pretrained_dvgo"])
+    cfg = Config().replace(**fields).replace(text="x", guidance="none")
+    g = torch.Generator(device=dev).manual_seed(5)
+    model = build_model(cfg, dev, g)
+    if cfg.pretrained_dvgo:
+        model.load_pretrained(cfg.pretrained_dvgo)
+    jitter = torch.rand(cfg.cascade, cfg.grid_size ** 3, 3, device=dev,
+                        generator=g)
+    gs = marching.update_grid(
+        model.density, marching.init_grid_state(cfg.cascade, cfg.grid_size,
+                                                dev),
+        bound=cfg.bound, density_thresh=cfg.density_thresh,
+        decay=cfg.grid_decay, jitter=jitter)
+    return cfg, model, gs
+
+
+def compare_march_window(gs, got, gst, ref, rst, *, K: int,
+                         live_logt: float, bound: float, label: str):
+    """Kernel W's result (got, gst) against march_window_groups_plain's
+    (ref, rst) for one call, as the card tests and the kernels phase hold
+    it. Ray indices, o_g, d_g, nears, fars, ts, dts (so the emits) and
+    gcount the same bits. valid differs only at slots whose exclusive
+    optical depth (the plain version's: the probed sigma EMA summed in
+    torch's cumsum order) lies within 1e-5 relative of live_logt, since
+    the kernel's running sum is a warp scan; counts are the kernel's valid
+    slots, glive and ltot their maximum and sum, and those equal the
+    plain version's but for the flipped slots. Raises AssertionError;
+    returns {"near_cut": slots within 1e-5 of the cut, "flipped": those on
+    the other side, "cut_rays": rays the cut shortens, "full": rays with K
+    emits}."""
+    from dreamfusion_torch.ops import marching
+
+    def need(ok, what):
+        if not ok:
+            raise AssertionError(f"kernel W against the torch march "
+                                 f"({label}): {what}")
+
+    need(len(got) == len(ref) == len(gst) == len(rst), "group counts")
+    seen = dict(near_cut=0, flipped=0, cut_rays=0, full=0)
+    for b, (gr, rr, gs_, rs) in enumerate(zip(got, ref, gst, rst)):
+        need(all(torch.equal(x, y) for x, y in zip(gr[:3] + gr[4:],
+                                                   rr[:3] + rr[4:])),
+             f"group {b}: ray indices, o_g, d_g, nears or fars")
+        mg, mr = gr[3], rr[3]
+        need(torch.equal(mg.ts, mr.ts) and torch.equal(mg.dts, mr.dts),
+             f"group {b}: ts or dts")
+        need(gs_[1] == rs[1], f"group {b}: gcount {gs_[1]} != {rs[1]}")
+        sig = marching.probe_density(gs.density_grid, rr[1], rr[2], mr.ts,
+                                     bound)
+        emitted = mr.dts > 0
+        depth = torch.cumsum(torch.clamp(sig, min=0.0) * mr.dts * emitted, 1)
+        ex = torch.cat([torch.zeros_like(depth[:, :1]), depth[:, :-1]], 1)
+        close = emitted & ((ex - live_logt).abs() <= 1e-5 * live_logt)
+        diff = mg.valid != mr.valid
+        flipped = int(diff.sum())
+        need(not (diff & ~close).any(),
+             f"group {b}: valid differs away from the live cut")
+        need(torch.equal(mg.counts, mg.valid.sum(1)),
+             f"group {b}: counts are not the valid slots")
+        need(gs_[0] == float(mg.counts.max())
+             and gs_[2] == float(mg.counts.sum()),
+             f"group {b}: glive, ltot {gs_} are not the counts'")
+        need(abs(gs_[0] - rs[0]) <= flipped and abs(gs_[2] - rs[2]) <= flipped,
+             f"group {b}: stats {gs_} != {rs} beyond {flipped} flipped")
+        seen["near_cut"] += int(close.sum())
+        seen["flipped"] += flipped
+        seen["cut_rays"] += int((mr.valid.sum(1) < emitted.sum(1)).sum())
+        seen["full"] += int((emitted.sum(1) == K).sum())
+    return seen
+
+
+def check_march_window(label, cfg, model, gs, view: int = 3):
+    """Kernel W against march_window_groups_plain on the flagged groups of
+    orbit frame `view` (frame_march_args), held as compare_march_window
+    holds it. Timed: device ms and launches a call of both by
+    torch.profiler; the byte bound of the rays and indices read once and
+    the outputs written once."""
+    from dreamfusion_torch.ops import marching
+
+    args, kw = frame_march_args(cfg, model, gs, view)
+    kernel = lambda: marching.march_window_groups_cuda(*args, **kw)  # noqa: E731
+    plain = lambda: marching.march_window_groups_plain(*args, **kw)  # noqa: E731
+    (got, gst), (ref, rst) = kernel(), plain()
+    torch.cuda.synchronize()
+    seen = compare_march_window(gs, got, gst, ref, rst, K=kw["K"],
+                                live_logt=kw["live_logt"], bound=kw["bound"],
+                                label=label)
+    n, group, K = len(got), kw["group"], kw["K"]
+    emits = sum(int((r[3].dts > 0).sum()) for r in ref)
+    live = sum(s[2] for s in rst)
+    gspan, G = args[5], args[5].shape[0]
+    S = sorted({marching.window_length(s, kw["S_ladder"])
+                for s in gspan[G - n:].tolist()})
+    log(f"[kernels] W {label}: {n} groups of {group} rays, K {K}, S {S}; "
+        f"{emits:,} emits, {live:,.0f} live; equal to the plain version "
+        f"but at the live cut: {seen['near_cut']} slots within 1e-5 of it, "
+        f"{seen['flipped']} on the other side; {seen['cut_rays']} rays cut, "
+        f"{seen['full']} with K emits")
+    ms, launches = device_time_and_launches(kernel)
+    plain_ms, plain_launches = device_time_and_launches(plain, reps=3,
+                                                        warmup=1)
+    # read: rays, perm and t_lo (36 bytes a ray); written: o_g, d_g, near,
+    # far, count (40 a ray) and ts, dts, valid (9 a slot)
+    b_ms, b_by = bound(n * group * (36 + 40 + 9 * K), 0)
+    log(f"[kernels] W {label}: {ms:.4f} device ms in {launches:g} launches "
+        f"a call (the kernel, the stats' zeroing and transfer); plain "
+        f"{plain_ms:.4f} in {plain_launches:g}; bound {b_ms:.5f} ms {b_by}, "
+        f"{b_ms / ms:.4f} of it")
+    return {"ms": ms, "launches_a_call": launches, "plain_ms": plain_ms,
+            "plain_launches_a_call": plain_launches, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "groups": n,
+            "flipped_slots": seen["flipped"]}
+
+
 def _cone_cases(opt_trainer, gen):
     """Kernel F's inputs: the options phase's grid with a fresh jittered
     train batch (4,096 rays, perturbed) and a 4,096-ray chunk of its 800x800
@@ -3809,7 +3972,8 @@ def phase_kernels(trainer, counts, captured=None, o2_trainer=None,
     "eval", ...) to its launch counts: an entry gives them per path and
     their sum. With the o2 phase's trainer, kernel A also at the -O2 step's
     sample positions (every one inside the box); kernel F at the options
-    phase's grid (_cone_cases)."""
+    phase's grid (_cone_cases); kernel W at an 800x800 frame of each orbit
+    (orbit_scene)."""
     from dreamfusion_torch.ops import marching
     from dreamfusion_torch.ops.grid_encoder import GridEncoderSpec
     from dreamfusion_torch.training.trainer import K_LADDER
@@ -3892,6 +4056,14 @@ def phase_kernels(trainer, counts, captured=None, o2_trainer=None,
     g_k0 = check_grid_sample("k0", 12, x01[~oob].contiguous(),
                              torch.ones_like(oob[~oob]), gen)
     del x01, oob
+    # kernel W on the flagged groups of an 800^2 frame of both orbits (the
+    # eval phase's trained asset, when it ran, for the grid orbit)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_w_") as tmp:
+        grid = ((trainer.cfg, trainer.model, trainer.grid_state)
+                if trainer is not None else orbit_scene("grid_sd15", tmp))
+        window = [check_march_window("grid orbit", *grid),
+                  check_march_window("edit orbit",
+                                     *orbit_scene("dvgo_sd15", tmp))]
     results = [("grid_encoder_bwd", a_dense), ("grid_encoder_bwd", a_comp),
                ("grid_encoder_bwd", a_k1b),
                *([("grid_encoder_bwd", a_o2)] if a_o2 is not None else []),
@@ -3902,6 +4074,7 @@ def phase_kernels(trainer, counts, captured=None, o2_trainer=None,
                ("attention_fwd", vae_attn["fwd"]),
                ("attention_bwd", vae_attn["bwd"]),
                *(("march_cone", c) for c in cone),
+               *(("march_window", w) for w in window),
                *((f"grid_sample_{way}", g[way]) for g in (g_density, g_k0)
                  for way in ("fwd", "bwd"))]
     # the eval's kernels at the inputs its frame gave them: C at every

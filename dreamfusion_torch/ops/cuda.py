@@ -53,6 +53,7 @@ SOURCES = {
     "flash_attention": "flash_attention.cu",
     "probe_select": "probe_select.cu",
     "march_cone": "march_cone.cu",
+    "march_window": "march_window.cu",
     "grid_sample": "grid_sample.cu",
     "mesh_native": "mesh_native.cpp",
 }
@@ -109,6 +110,9 @@ ENTRIES: Dict[str, Entry] = {
     "march_cone": Entry("march_cone",
                         (_P,) * 9 + (_I32,) * 5 + (_F32,) * 5 + (_P,),
                         "march_cone"),
+    "march_window": Entry("march_window",
+                          (_P,) * 17 + (_I32,) * 12 + (_F32,) * 5 + (_P,),
+                          "march_window"),
     "grid_sample_fwd": Entry("grid_sample",
                              (_P,) * 3 + (_I32,) * 4 + (_I64, _P),
                              "grid_sample_fwd"),

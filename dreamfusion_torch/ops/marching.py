@@ -10,6 +10,11 @@ nerf/renderer.py:446-613).
   stepping: dt grows with t) it takes ``march_rays_cone``: kernel F
   (csrc/march_cone.cu, a thread per ray) on a CUDA tensor,
   ``march_rays_cone_plain`` (max_steps masked steps) on a CPU tensor.
+- ``march_window_groups``: the staged eval's windowed march of a frame's
+  flagged ray groups with its sigma-EMA live cut: kernel W
+  (csrc/march_window.cu, every group in one launch) on a CUDA tensor with
+  a single-cascade grid, ``march_window_groups_plain`` (a group at a time,
+  ``march_rays_window``) otherwise.
 - ``make_compact_map`` / ``compact_expand``: the field is queried at a
   global budget of M samples; when the marched total exceeds M every ray
   keeps floor(count * M / total) samples (the JAX truncation semantics).
@@ -278,6 +283,134 @@ def march_rays_window(occ, rays_o, rays_d, nears, fars, t_lo, *,
         return _compact(ts, dts, (sig > occ_thresh) & alive, K, payload=sig)
     emits = _probe_occupancy(occ, rays_o, rays_d, ts, bound) & alive
     return _compact(ts, dts, emits, K)[0], None
+
+
+def window_length(span: float, ladder: Sequence[int]) -> int:
+    """The first S of the ascending S ladder that covers `span` lattice
+    points, else the ladder's last."""
+    return next((s for s in ladder if s >= span), ladder[-1])
+
+
+@torch.no_grad()
+def march_window_live(gs: GridState, o, d, t_lo, aabb, *, min_near: float,
+                      density_thresh: float, live_logt: float, bound: float,
+                      max_steps: int, S: int, K: int):
+    """Windowed march of one ray group + (live bucket, count bucket, live
+    total) [3]: with a single cascade a slot stays valid while the sigma
+    EMA's exclusive optical depth along its ray is below live_logt; the
+    total is -1 where the live estimate is not built (cascade > 1). Returns
+    (MarchOut with counts the valid slots, nears, fars, stats)."""
+    nears, fars = near_far_from_aabb(o, d, aabb, min_near)
+    thresh = torch.clamp(gs.mean_density, max=density_thresh)
+    m, sig_est = march_rays_window(
+        gs.occ, o, d, nears, fars, t_lo, bound=bound, max_steps=max_steps,
+        S=S, K=K, density_grid=gs.density_grid, occ_thresh=thresh)
+    gcount = torch.clamp(m.counts, max=K).max().float()
+    if sig_est is None:
+        glive, ltot = gcount, torch.full_like(gcount, -1.0)
+    else:
+        depth = torch.cumsum(torch.clamp(sig_est, min=0.0) * m.dts * m.valid,
+                             1)
+        depth_ex = torch.cat([torch.zeros_like(depth[:, :1]),
+                              depth[:, :-1]], 1)
+        # a prefix of valid: the estimated optical depth is monotone
+        live = m.valid & (depth_ex < live_logt)
+        m = m._replace(valid=live)
+        live_counts = live.sum(1)
+        glive, ltot = live_counts.max().float(), live_counts.sum().float()
+    m = m._replace(counts=m.valid.sum(1))
+    return m, nears, fars, torch.stack([glive, gcount, ltot])
+
+
+@torch.no_grad()
+def march_window_groups_plain(gs: GridState, o, d, perm, t_lo, gspan,
+                              n: int, *, group: int, aabb, min_near: float,
+                              density_thresh: float, live_logt: float,
+                              bound: float, max_steps: int,
+                              S_ladder: Sequence[int], K: int):
+    """march_window_groups, one group after another (march_window_live),
+    each group's S from its span taken to the host, the groups' stats to
+    the host in one transfer."""
+    G = gspan.shape[0]
+    marched, stats = [], []
+    for b, span in enumerate(gspan[G - n:].flip(0).tolist()):
+        g = G - 1 - b
+        ridx = perm[g * group:(g + 1) * group]
+        o_g, d_g = o[ridx], d[ridx]
+        m, nears, fars, st = march_window_live(
+            gs, o_g, d_g, t_lo[ridx], aabb, min_near=min_near,
+            density_thresh=density_thresh, live_logt=live_logt, bound=bound,
+            max_steps=max_steps, S=window_length(span, S_ladder), K=K)
+        marched.append((ridx, o_g, d_g, m, nears, fars))
+        stats.append(st)
+    return marched, (torch.stack(stats).cpu().tolist() if stats else [])
+
+
+@torch.no_grad()
+def march_window_groups_cuda(gs: GridState, o, d, perm, t_lo, gspan,
+                             n: int, *, group: int, aabb, min_near: float,
+                             density_thresh: float, live_logt: float,
+                             bound: float, max_steps: int,
+                             S_ladder: Sequence[int], K: int):
+    """Kernel W: march_window_groups_plain's contract for a single-cascade
+    grid, every group in one launch (csrc/march_window.cu). The kernel
+    picks each group's S from gspan on the device; its stats come to the
+    host in one transfer. The per-group outputs are views of [n, group,
+    ...] buffers."""
+    if n == 0:
+        return [], []
+    dev = o.device
+    Np, G = o.shape[0], gspan.shape[0]
+    H = gs.density_grid.shape[1]
+    if Np != G * group:
+        raise ValueError(f"{Np} rays are not {G} groups of {group}")
+    if not 0 < n <= G:
+        raise ValueError(f"{n} flagged groups of {G}")
+    if not 0 < len(S_ladder) <= 7:
+        raise ValueError(f"the S ladder has 1 to 7 rungs, got {S_ladder}")
+    cuda.require(o, "o", torch.float32, (Np, 3))
+    cuda.require(d, "d", torch.float32, (Np, 3), dev)
+    cuda.require(perm, "perm", torch.int64, (Np,), dev)
+    cuda.require(t_lo, "t_lo", torch.float32, (Np,), dev)
+    cuda.require(gspan, "gspan", torch.float32, (G,), dev)
+    cuda.require(aabb, "aabb", torch.float32, (6,), dev)
+    cuda.require(gs.density_grid, "density_grid", torch.float32,
+                 (1, H, H, H), dev)
+    cuda.require(gs.mean_density, "mean_density", torch.float32, (), dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    o_g, d_g = (torch.empty(n, group, 3, **f32) for _ in range(2))
+    nears, fars = (torch.empty(n, group, **f32) for _ in range(2))
+    ts, dts = (torch.empty(n, group, K, **f32) for _ in range(2))
+    valid = torch.empty(n, group, K, dtype=torch.bool, device=dev)
+    counts = torch.empty(n, group, dtype=torch.int64, device=dev)
+    stats = torch.zeros(n, 3, dtype=torch.int32, device=dev)
+    ladder = list(S_ladder) + [S_ladder[-1]] * (7 - len(S_ladder))
+    cuda.launch("march_window", dev, *(t.data_ptr() for t in (
+        o, d, perm, t_lo, gspan, aabb, gs.density_grid, gs.mean_density,
+        o_g, d_g, nears, fars, ts, dts, valid, counts, stats)),
+        G - 1, n, group, K, H, *ladder, float(min_near), float(bound),
+        2.0 * SQRT3 / max_steps, float(density_thresh), float(live_logt))
+    marched = [(perm[(G - 1 - b) * group:(G - b) * group], o_g[b], d_g[b],
+                MarchOut(ts[b], dts[b], valid[b], counts[b]), nears[b],
+                fars[b]) for b in range(n)]
+    return marched, [[float(v) for v in row] for row in stats.cpu().tolist()]
+
+
+def march_window_groups(gs: GridState, o, d, perm, t_lo, gspan, n: int,
+                        **kw):
+    """The staged eval's march of its n flagged ray groups, the last n of
+    the sort: group b < n is the sorted group g = G - 1 - b (the densest
+    first; G = gspan.shape[0]), its rays perm[g group:(g + 1) group],
+    marched over the window of S = window_length(gspan[g], S_ladder)
+    lattice points from t_lo, with the sigma-EMA live cut
+    (march_window_live). gspan [G] holds the groups' span maxima on the
+    device. Kernel W (one launch) on a CUDA tensor with a single-cascade grid;
+    otherwise a group at a time in PyTorch. Returns ([(ridx, o_g, d_g,
+    MarchOut, nears, fars)] and the host's [[glive, gcount, ltot]], one a
+    group)."""
+    if o.is_cuda and gs.density_grid.shape[0] == 1:
+        return march_window_groups_cuda(gs, o, d, perm, t_lo, gspan, n, **kw)
+    return march_window_groups_plain(gs, o, d, perm, t_lo, gspan, n, **kw)
 
 
 def _compact(ts, dts, emits, K: int,

@@ -22,9 +22,9 @@ stratified renderer render in chunks of ``cfg.max_ray_batch`` rays
 (``make_eval_render``); those of the grid renderer render
 through ``make_staged_grid_eval``: a classify pass over the pooled
 occupancy grid (kernel D), a windowed march of the flagged ray groups with
-a transmittance-live estimate, and a compact shade per group composited
-on the compact buffer in one launch (kernel C, the compact compositor),
-pasted into the frame by ray index.
+a transmittance-live estimate (kernel W, one launch a frame), and a
+compact shade per group composited on the compact buffer in one launch
+(kernel C, the compact compositor), pasted into the frame by ray index.
 
 ``Trainer.advance`` is one step of ``train`` (the GUI's bursts take it),
 ``Trainer.reset_weights`` restarts the asset (the GUI's reset) and
@@ -62,7 +62,7 @@ from dreamfusion_torch.ops.composite import near_far_from_aabb
 from dreamfusion_torch.ops.marching import (SQRT3, GridState, MarchOut,
                                             coarse_hit_window,
                                             init_grid_state, march_rays,
-                                            march_rays_window,
+                                            march_window_groups,
                                             max_pooled_stride, pool_occ,
                                             refresh_partial, render_grid,
                                             shade_march, update_grid)
@@ -239,8 +239,10 @@ def make_staged_grid_eval(cfg: Config, model: _BaseNeRF, H: int,
     2. background for the whole frame;
     3. march every flagged group (from the densest end down to the first
        empty group) over the S-ladder length its span needs, with the
-       sigma-EMA live estimate (margin 1.2) cutting samples past T ~ 1e-4;
-       the groups' stats come to the host in one transfer;
+       sigma-EMA live estimate (margin 1.2) cutting samples past T ~ 1e-4
+       (marching.march_window_groups: kernel W, all groups in one launch,
+       on the GPU with a single cascade); the groups' stats come to the
+       host in one transfer;
     4. shade each group: single cascade at a global compact budget of the
        group's mean live count (composite_compact: kernel C, the compact
        compositor), several cascades dense at the live bucket (kernel B);
@@ -283,7 +285,8 @@ def make_staged_grid_eval(cfg: Config, model: _BaseNeRF, H: int,
 
     def classify(occ, o, d, aabb):
         """Coarse hit counts and emit windows, the sort by (count, span),
-        and each group's maxima -> (perm, t_lo, gstats [groups, 2] host)."""
+        and each group's maxima -> (perm, t_lo, gspan [groups] on the
+        device, gmax [groups] (count) on the host)."""
         grid = pool_occ(occ, pool_factor) if pool_factor > 1 else occ
         nears, fars = near_far_from_aabb(o, d, aabb, cfg.min_near)
         counts, t_lo, t_hi = coarse_hit_window(
@@ -294,7 +297,7 @@ def make_staged_grid_eval(cfg: Config, model: _BaseNeRF, H: int,
         perm = torch.sort(key, stable=True).indices
         gmax = counts.float()[perm].reshape(-1, group).amax(1)
         gspan = span[perm].reshape(-1, group).amax(1)
-        return perm, t_lo, torch.stack([gmax, gspan], 1).cpu()
+        return perm, t_lo, gspan, gmax.cpu()
 
     def march_all(occ, o, d, aabb):
         """The fallback's march: each group of rays at K = grid_K, the
@@ -315,32 +318,6 @@ def make_staged_grid_eval(cfg: Config, model: _BaseNeRF, H: int,
         gmax = m.counts[perm].reshape(-1, group).amax(1).cpu()
         return m, nears, fars, perm, gmax
 
-    def march_group(gs: GridState, o, d, t_lo, S: int, aabb):
-        """Windowed march of one group + (live bucket, count bucket, live
-        total); the total is -1 where the live estimate is not built
-        (cascade > 1)."""
-        nears, fars = near_far_from_aabb(o, d, aabb, cfg.min_near)
-        thresh = torch.clamp(gs.mean_density, max=cfg.density_thresh)
-        m, sig_est = march_rays_window(
-            gs.occ, o, d, nears, fars, t_lo, bound=cfg.bound,
-            max_steps=cfg.max_steps, S=S, K=cfg.grid_K,
-            density_grid=gs.density_grid, occ_thresh=thresh)
-        gcount = torch.clamp(m.counts, max=cfg.grid_K).max().float()
-        if sig_est is None:
-            glive, ltot = gcount, torch.full_like(gcount, -1.0)
-        else:
-            depth = torch.cumsum(torch.clamp(sig_est, min=0.0) * m.dts
-                                 * m.valid, 1)
-            depth_ex = torch.cat([torch.zeros_like(depth[:, :1]),
-                                  depth[:, :-1]], 1)
-            # a prefix of valid: the estimated optical depth is monotone
-            live = m.valid & (depth_ex < _LIVE_LOGT)
-            m = m._replace(valid=live)
-            live_counts = live.sum(1)
-            glive, ltot = live_counts.max().float(), live_counts.sum().float()
-        m = m._replace(counts=m.valid.sum(1))
-        return m, nears, fars, torch.stack([glive, gcount, ltot])
-
     @torch.no_grad()
     def render_frame(rays_o, rays_d, grid_state: GridState,
                      shading_code: int = SHADING_ALBEDO,
@@ -355,7 +332,8 @@ def make_staged_grid_eval(cfg: Config, model: _BaseNeRF, H: int,
         d = torch.cat([rays_d, rays_d.new_ones(Np - N, 3) / 3 ** 0.5])
         if not cone:
             with trace.span("eval/classify"):
-                perm, t_lo, gstats = classify(grid_state.occ, o, d, aabb)
+                perm, t_lo, gspan, gmax = classify(grid_state.occ, o, d,
+                                                   aabb)
         with trace.span("eval/bg"):
             if cfg.bg_radius > 0:
                 image = model.background(d)
@@ -390,22 +368,20 @@ def make_staged_grid_eval(cfg: Config, model: _BaseNeRF, H: int,
                     depth[ridx] = out["depth"]
                     ws[ridx] = out["weights_sum"]
             return finish(image, depth, ws)
-        marched = []
         with trace.span("eval/march"):
-            for g in reversed(range(gstats.shape[0])):
-                if gstats[g, 0] == 0.0:
+            flagged = 0
+            for g in reversed(range(gmax.shape[0])):
+                if gmax[g] == 0.0:
                     break                      # sorted: the rest is empty
-                span = float(gstats[g, 1])
-                S = next((s for s in S_ladder if s >= span), S_ladder[-1])
-                ridx = perm[g * group:(g + 1) * group]
-                o_g, d_g = o[ridx], d[ridx]
-                m, nears, fars, st = march_group(grid_state, o_g, d_g,
-                                                 t_lo[ridx], S, aabb)
-                marched.append((ridx, o_g, d_g, m, nears, fars, st))
-            stats = (torch.stack([x[-1] for x in marched]).cpu().tolist()
-                     if marched else [])
+                flagged += 1
+            marched, stats = march_window_groups(
+                grid_state, o, d, perm, t_lo, gspan, flagged, group=group,
+                aabb=aabb, min_near=cfg.min_near,
+                density_thresh=cfg.density_thresh, live_logt=_LIVE_LOGT,
+                bound=cfg.bound, max_steps=cfg.max_steps, S_ladder=S_ladder,
+                K=cfg.grid_K)
         with trace.span("eval/shade"):
-            for (ridx, o_g, d_g, m, nears, fars, _), (glive, gcount, ltot) \
+            for (ridx, o_g, d_g, m, nears, fars), (glive, gcount, ltot) \
                     in zip(marched, stats):
                 if gcount == 0.0:
                     continue                   # flagged, but truly empty

@@ -1103,3 +1103,170 @@ def test_staged_eval_frame_launches_kernel_h_once_per_field_query(
     assert queries and launched["grid_encoder_fwd"] == len(queries)
     assert launched["grid_encoder_bwd"] == launched["grid_encoder_bwd_rows"] == 0
     assert float(out["weights_sum"].max()) > 1e-3
+
+
+# the orbit cells' configurations
+_ORBITS = {"grid": "grid_sd15", "dvgo": "dvgo_sd15"}
+
+
+@pytest.mark.parametrize("kind", ["grid", "dvgo"])
+def test_march_window_kernel_matches_the_torch_march(dev, tmp_path, kind):
+    """Kernel W against the torch march (march_window_groups_plain) on the
+    groups of an 800^2 orbit frame of each orbit cell's configuration
+    (chip_smoke.orbit_scene: its seeded field and grid state): the frame's
+    own flagged groups; every group of the frame at S 64, 128, 256 and 512
+    in turn (K 128) with every 53rd ray turned to miss the box (the
+    frame's 1,024 padding rays among them); and the frame's groups at a K
+    below the most emits a ray has (at most 16), so rays fill their slots
+    and stop early in both scenes. Held as chip_smoke.compare_march_window
+    holds it (the kernels phase's check): bitwise but for slots whose
+    exclusive optical depth lies within 1e-5 relative of the live cut,
+    which are counted. One launch a call; the cut shortens rays at K
+    128."""
+    from dreamfusion_torch.ops import cuda as kcuda
+    from dreamfusion_torch.ops import marching
+
+    from chip_smoke import compare_march_window, frame_march_args, orbit_scene
+
+    cfg, model, gs = orbit_scene(_ORBITS[kind], str(tmp_path))
+    (_, o, d, perm, t_lo, gspan, n), kw = frame_march_args(cfg, model, gs)
+    G, K = gspan.shape[0], kw["K"]
+    assert K == 128 and 0 < n < G and o.shape[0] > cfg.H * cfg.W
+    miss = torch.arange(0, o.shape[0], 53, device=dev)
+    o2, d2, t2 = o.clone(), d.clone(), t_lo.clone()
+    o2[miss] = 3.0
+    d2[miss] = torch.tensor([0.0, 0.0, 1.0], device=dev)
+    t2[miss] = 1e9                       # classify's t_lo for a miss
+    forced = [float((64, 128, 256, 512)[b % 4]) for b in range(G)]
+    ref, _ = marching.march_window_groups_plain(gs, o, d, perm, t_lo, gspan,
+                                                n, **kw)
+    most = max(int((r[3].dts > 0).sum(1).max()) for r in ref)
+    small_K = min(16, max(most - 1, 1))
+    cases = [("frame", (o, d, perm, t_lo, gspan, n), kw),
+             ("S ladder, misses", (o2, d2, perm, t2, torch.tensor(
+                 forced[::-1], device=dev), G), kw),
+             (f"K {small_K}", (o, d, perm, t_lo, gspan, n),
+              dict(kw, K=small_K))]
+    for label, args, kw_ in cases:
+        n0 = kcuda.launch_counts["march_window"]
+        got, gst = marching.march_window_groups_cuda(gs, *args, **kw_)
+        assert kcuda.launch_counts["march_window"] == n0 + 1
+        ref, rst = marching.march_window_groups_plain(gs, *args, **kw_)
+        torch.cuda.synchronize()
+        assert len(got) == args[-1]
+        seen = compare_march_window(gs, got, gst, ref, rst, K=kw_["K"],
+                                    live_logt=kw_["live_logt"],
+                                    bound=kw_["bound"], label=label)
+        print(f"[{kind}, {label}] {len(got)} groups: slots within 1e-5 of "
+              f"the cut {seen['near_cut']}, of them on the other side "
+              f"{seen['flipped']}; rays the cut shortens {seen['cut_rays']}, "
+              f"rays with K emits {seen['full']}")
+        if label.startswith("K "):
+            assert seen["full"] > 0
+        else:
+            assert seen["cut_rays"] > 0
+
+
+@pytest.mark.parametrize("kind,mean_limit,max_limit",
+                         [("grid", 0.3, 4), ("dvgo", 5e-3, 3)])
+def test_staged_frame_through_kernel_w_keeps_the_cells_limits(
+        dev, tmp_path, monkeypatch, kind, mean_limit, max_limit):
+    """A staged 800^2 orbit frame with kernel W against the same frame
+    through the torch march, both written as Trainer._save_frame writes
+    them (8 bits): within the cell's frame_mean_gap and frame_max_gap
+    limits (benchmark/cells/grid_sd15.eval_orbit.json,
+    dvgo_sd15.edit_orbit.json); kernel W launches once a frame, and not
+    at all with the torch march."""
+    from dreamfusion_torch import cameras
+    from dreamfusion_torch.ops import cuda as kcuda
+    from dreamfusion_torch.ops import marching
+    from dreamfusion_torch.training import trainer as tr
+
+    from chip_smoke import orbit_scene
+
+    cfg, model, gs = orbit_scene(_ORBITS[kind], str(tmp_path))
+    render = tr.make_staged_grid_eval(cfg, model, cfg.H, cfg.W)
+    b = cameras.sample_test_batch(7, 100, cfg, H=cfg.H, W=cfg.W, device=dev)
+
+    def frame():
+        out = render(b["rays_o"][0], b["rays_d"][0], gs)
+        return (out["image"].clamp(0, 1) * 255).to(torch.uint8)
+
+    n0 = kcuda.launch_counts["march_window"]
+    new = frame()
+    assert kcuda.launch_counts["march_window"] == n0 + 1
+    monkeypatch.setattr(marching, "march_window_groups_cuda",
+                        marching.march_window_groups_plain)
+    old = frame()
+    assert kcuda.launch_counts["march_window"] == n0 + 1
+    gap = (new.int() - old.int()).abs()
+    print(f"[{kind}] staged frame, kernel W vs the torch march: mean gap "
+          f"{float(gap.float().mean()):.6g}, max {int(gap.max())} levels")
+    assert float(gap.float().mean()) <= mean_limit
+    assert int(gap.max()) <= max_limit
+
+
+def test_march_window_groups_keeps_the_torch_march_for_cascades(dev):
+    """A grid of two cascades on the card keeps the torch march (kernel W
+    probes a single cascade's density EMA): no launch, the plain result."""
+    from dreamfusion_torch.ops import cuda as kcuda
+    from dreamfusion_torch.ops import marching
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    dgrid = torch.rand(2, 32, 32, 32, device=dev, generator=g) * 20.0
+    gs = marching.GridState(dgrid, dgrid > 10.0, dgrid.mean())
+    group, G = 64, 4
+    o = torch.nn.functional.normalize(
+        torch.randn(G * group, 3, device=dev, generator=g), dim=-1) * 5.0
+    d = torch.nn.functional.normalize(
+        torch.rand(G * group, 3, device=dev, generator=g) - 0.5 - o, dim=-1)
+    t_lo = torch.full((G * group,), 3.0, device=dev)
+    perm = torch.randperm(G * group, device=dev, generator=g)
+    spans = [200.0, 30.0]
+    gspan = torch.tensor([0.0, 0.0] + spans[::-1], device=dev)
+    kw = dict(group=group, aabb=torch.tensor([-2.0] * 3 + [2.0] * 3,
+                                             device=dev),
+              min_near=0.1, density_thresh=10.0, live_logt=11.05236,
+              bound=2.0, max_steps=256, S_ladder=(32, 64, 128, 256), K=32)
+    n0 = kcuda.launch_counts["march_window"]
+    got, gst = marching.march_window_groups(gs, o, d, perm, t_lo, gspan,
+                                            len(spans), **kw)
+    ref, rst = marching.march_window_groups_plain(gs, o, d, perm, t_lo,
+                                                  gspan, len(spans), **kw)
+    assert kcuda.launch_counts["march_window"] == n0
+    assert gst == rst and all(s[2] == -1.0 for s in gst)
+    for gr, rr in zip(got, ref):
+        for a, b in zip(gr[:3] + gr[4:] + tuple(gr[3]),
+                        rr[:3] + rr[4:] + tuple(rr[3])):
+            assert torch.equal(a, b)
+
+
+def test_march_window_kernel_refuses_bad_inputs(dev):
+    """The wrapper checks dtypes, shapes, that the rays are whole groups
+    and that the flagged groups are among them."""
+    from dreamfusion_torch.ops import marching
+
+    gs = marching.init_grid_state(1, 8, dev)
+    o = torch.zeros(64, 3, device=dev)
+    perm = torch.arange(64, device=dev)
+    t_lo = torch.zeros(64, device=dev)
+    gspan = torch.ones(2, device=dev)
+    kw = dict(group=32, aabb=torch.tensor([-1.0] * 3 + [1.0] * 3, device=dev),
+              min_near=0.1, density_thresh=10.0, live_logt=11.05236,
+              bound=1.0, max_steps=64, S_ladder=(8, 16, 64), K=16)
+    with pytest.raises(TypeError):
+        marching.march_window_groups_cuda(gs, o, o, perm.int(), t_lo, gspan,
+                                          1, **kw)
+    with pytest.raises(ValueError):
+        marching.march_window_groups_cuda(gs, o, o, perm, t_lo, gspan[:1],
+                                          1, **kw)
+    with pytest.raises(ValueError):
+        marching.march_window_groups_cuda(gs, o, o, perm, t_lo, gspan, 3,
+                                          **kw)
+    with pytest.raises(ValueError):
+        marching.march_window_groups_cuda(gs, o, o.cpu(), perm, t_lo, gspan,
+                                          1, **kw)
+    with pytest.raises(ValueError):
+        marching.march_window_groups_cuda(gs, o, o, perm, t_lo, gspan, 1,
+                                          **dict(kw, S_ladder=tuple(range(
+                                              1, 9))))

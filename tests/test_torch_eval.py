@@ -555,3 +555,80 @@ def test_window_lattice_is_bitwise_the_full_march_lattice():
     jax_lattice = (near + k0 * np.float32(dt))[:, None] + np.float32(dt) \
         * np.arange(128, dtype=np.float32)[None, :]
     assert (jax_lattice != want.numpy()).any()   # the rounding gap exists
+
+
+@pytest.mark.parametrize("cascade", [1, 2])
+def test_march_window_groups_off_the_card_keep_the_torch_march(monkeypatch,
+                                                               cascade):
+    """On CPU tensors, and with a grid of several cascades, the staged
+    eval's group march stays PyTorch's and calls no kernel: five flagged
+    groups of six (the densest first, spans below, on and past the S
+    ladder) each equal march_rays_window at the S their span picks with
+    the live cut written out here (several cascades: no cut, live total
+    -1), and their stats come back as one host list."""
+    from dreamfusion_torch.ops import cuda as kcuda
+    from dreamfusion_torch.ops.composite import near_far_from_aabb
+
+    def boom(*args, **kw):
+        raise AssertionError("a CUDA kernel was called on the CPU path")
+
+    monkeypatch.setattr(kcuda, "launch", boom)
+    H, group, G, K, max_steps, bound = 32, 32, 6, 12, 128, float(cascade)
+    rng = np.random.default_rng(7 + cascade)
+    dgrid = (rng.uniform(size=(cascade, H, H, H)) * np.where(
+        _occ(3, (cascade, H, H, H), 0.2), 200.0, 1.0)).astype(np.float32)
+    mean = np.float32(dgrid.mean())
+    gs = tmarch.GridState(_t(dgrid), _t(dgrid > min(mean, 10.0)),
+                          torch.tensor(mean))
+    aabb = torch.tensor([-bound] * 3 + [bound] * 3)
+    o, d, _, _ = _rays(G * group, 5, origin_scale=4.0 * bound)
+    o, d = _t(o), _t(d)
+    near, _ = near_far_from_aabb(o, d, aabb, 0.05)
+    t_lo = near + _t(rng.uniform(size=G * group).astype(np.float32)) * 0.5
+    perm = torch.from_numpy(rng.permutation(G * group))
+    spans = [40.0, 3.0, 100.0, 64.0, 1000.0]
+    gspan = torch.tensor([0.0] + spans[::-1])
+    ladder = (16, 32, 48, 64, 80, 96, 128)
+    logt = ttrainer._LIVE_LOGT
+    n0 = dict(kcuda.launch_counts)
+    marched, stats = tmarch.march_window_groups(
+        gs, o, d, perm, t_lo, gspan, len(spans), group=group, aabb=aabb,
+        min_near=0.05, density_thresh=10.0, live_logt=logt, bound=bound,
+        max_steps=max_steps, S_ladder=ladder, K=K)
+    assert kcuda.launch_counts == n0
+    assert len(marched) == len(stats) == len(spans)
+    cut = 0
+    for b, ((ridx, o_g, d_g, m, nears, fars), st) in enumerate(
+            zip(marched, stats)):
+        g = G - 1 - b
+        assert torch.equal(ridx, perm[g * group:(g + 1) * group])
+        assert torch.equal(o_g, o[ridx]) and torch.equal(d_g, d[ridx])
+        S = next((s for s in ladder if s >= spans[b]), 128)
+        want_n, want_f = near_far_from_aabb(o[ridx], d[ridx], aabb, 0.05)
+        want, sig = tmarch.march_rays_window(
+            gs.occ, o[ridx], d[ridx], want_n, want_f, t_lo[ridx],
+            bound=bound, max_steps=max_steps, S=S, K=K,
+            density_grid=gs.density_grid,
+            occ_thresh=torch.clamp(gs.mean_density, max=10.0))
+        gcount = float(torch.clamp(want.counts, max=K).max())
+        if cascade == 1:
+            depth = torch.cumsum(torch.clamp(sig, min=0.0) * want.dts
+                                 * want.valid, 1)
+            depth_ex = torch.cat([torch.zeros(group, 1), depth[:, :-1]], 1)
+            live = want.valid & (depth_ex < logt)
+            n_live = live.sum(1)
+            want_st = [float(n_live.max()), gcount, float(n_live.sum())]
+            cut += int((n_live < want.valid.sum(1)).sum())
+        else:
+            assert sig is None
+            live = want.valid
+            want_st = [gcount, gcount, -1.0]
+        _eq(nears, want_n)
+        _eq(fars, want_f)
+        _eq(m.ts, want.ts)
+        _eq(m.dts, want.dts)
+        _eq(m.valid, live)
+        _eq(m.counts, live.sum(1))
+        assert st == want_st, (b, st, want_st)
+    assert max(st[1] for st in stats) == K       # some ray fills its slots
+    assert (cut > 0) == (cascade == 1)           # the live cut bites

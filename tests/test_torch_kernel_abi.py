@@ -112,8 +112,8 @@ def test_every_extern_c_function_is_registered():
     assert list(cuda.launch_counts) == [
         "grid_encoder_bwd", "grid_encoder_bwd_rows", "grid_encoder_fwd",
         "composite_fwd", "composite_bwd", "composite_compact", "attention_fwd",
-        "attention_bwd", "probe_select_small", "march_cone", "grid_sample_fwd",
-        "grid_sample_bwd"]
+        "attention_bwd", "probe_select_small", "march_cone", "march_window",
+        "grid_sample_fwd", "grid_sample_bwd"]
     assert {s for s, e in cuda.ENTRIES.items() if e.counter is None} == {
         "marching_tetrahedra", "rasterize_uv", "nearest_inpaint",
         "attention_bwd_delta"}
